@@ -1,0 +1,368 @@
+"""GPT family — the dense inference path of ``ray_tpu/models/gpt.py`` in
+PyTorch.
+
+Same configuration fields and presets, same parameter shapes and names
+(layers are a ``ModuleList`` here, where the JAX package stacks them on a
+leading axis for ``lax.scan``), same numerics:
+
+* rotary embeddings on a prefix of each head, rotating its two halves;
+* the GPT-J parallel block (one LayerNorm feeding attention and MLP);
+* LayerNorm in fp32, cast back to the activation dtype;
+* parameters kept in ``param_dtype`` and cast to ``cfg.dtype`` at each
+  use, as the JAX code's ``.astype(dt)`` does;
+* the tanh form of GELU (``jax.nn.gelu``'s default);
+* the -1e30 causal mask fill of the dot attention.
+
+``attn_impl="flash"`` runs attention through the port's flash kernel
+(``ops/flash_attention.py``). The MoE FFN, ring/Ulysses attention, the
+loss and rematerialisation belong to later slices of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.flash_attention import flash_attention
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50400
+    n_layers: int = 28
+    d_model: int = 4096
+    n_heads: int = 16
+    n_kv_heads: Optional[int] = None  # != n_heads → GQA/MQA
+    d_ff: int = 16384
+    max_seq_len: int = 2048
+    rotary_dim: int = 64  # GPT-J applies rotary to a prefix of head_dim
+    parallel_block: bool = True  # GPT-J parallel attn+MLP residual
+    tie_embeddings: bool = False
+    dtype: Any = torch.bfloat16  # activation/compute dtype
+    param_dtype: Any = torch.float32
+    # Training-only fields, kept so configs carry over unchanged; the
+    # training slice of the port reads them.
+    remat: bool = True
+    remat_policy: str = "full"  # "full" | "selective"
+    loss_chunk: int = 0
+    attn_impl: str = "dot"  # "dot" | "flash" | "ring" | "ulysses"
+    # Flash tile sizes: _pick_block decides from them whether the kernel
+    # or the ragged (blockwise) route runs.
+    attn_blk_q: int = 512
+    attn_blk_k: int = 512
+    layernorm_eps: float = 1e-5
+    # Mixture-of-experts (a later slice of the port).
+    n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    def num_params(self) -> int:
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        kvh = self.kv_heads * self.head_dim
+        if self.n_experts:
+            ffn = self.n_experts * (2 * d * f + f) + d * self.n_experts
+        else:
+            ffn = 2 * d * f + f
+        per_layer = d * d + 2 * d * kvh + d * d + ffn + d + 2 * d
+        head = 0 if self.tie_embeddings else v * d + v
+        return v * d + L * per_layer + 2 * d + head
+
+
+# -- presets ------------------------------------------------------------
+
+PRESETS: Dict[str, GPTConfig] = {
+    # EleutherAI/gpt-j-6b hyperparameters.
+    "gptj-6b": GPTConfig(),
+    "gpt-410m": GPTConfig(
+        vocab_size=50304, n_layers=24, d_model=1024, n_heads=16,
+        d_ff=4096, rotary_dim=32, max_seq_len=1024),
+    "gpt2-124m": GPTConfig(
+        vocab_size=50304, n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+        rotary_dim=32, max_seq_len=1024),
+    # GPT-Neo-1.3B widths.
+    "gpt-1.3b": GPTConfig(
+        vocab_size=50304, n_layers=24, d_model=2048, n_heads=16,
+        d_ff=8192, rotary_dim=64, max_seq_len=1024),
+    # GPT-Neo-2.7B widths.
+    "gpt-2.7b": GPTConfig(
+        vocab_size=50304, n_layers=32, d_model=2560, n_heads=32,
+        d_ff=10240, rotary_dim=64, max_seq_len=1024),
+    # Test-size configs.
+    "gpt-tiny": GPTConfig(
+        vocab_size=256, n_layers=2, d_model=64, n_heads=4, d_ff=128,
+        rotary_dim=8, max_seq_len=128, dtype=torch.float32, remat=False),
+    "gpt-micro": GPTConfig(
+        vocab_size=512, n_layers=4, d_model=128, n_heads=8, d_ff=512,
+        rotary_dim=16, max_seq_len=256, dtype=torch.float32, remat=False),
+    # MoE variants (their FFN is a later slice of the port).
+    "gpt-moe-tiny": GPTConfig(
+        vocab_size=256, n_layers=2, d_model=64, n_heads=4, d_ff=128,
+        rotary_dim=8, max_seq_len=128, dtype=torch.float32, remat=False,
+        n_experts=4),
+    "gpt-moe-8x410m": GPTConfig(
+        vocab_size=50304, n_layers=24, d_model=1024, n_heads=16,
+        d_ff=4096, rotary_dim=32, max_seq_len=1024, n_experts=8),
+}
+
+
+def config(name: str, **overrides) -> GPTConfig:
+    cfg = PRESETS[name]
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+def flops_per_token(cfg: GPTConfig) -> float:
+    """Approximate training FLOPs/token (6N_active + attention quadratic
+    term); for MoE only the top-k routed experts count."""
+    n = cfg.num_params()
+    if cfg.is_moe:
+        d, f, L, E = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_experts
+        K = min(cfg.expert_top_k, E)
+        n -= L * (E - K) * (2 * d * f + f)
+    attn = 12 * cfg.n_layers * cfg.d_model * cfg.max_seq_len
+    return 6.0 * n + attn
+
+
+# -- numerics -----------------------------------------------------------
+
+def _layernorm(x, scale, bias, eps):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _rotary(x, positions, rotary_dim):
+    """Rotary embedding on the first ``rotary_dim`` dims of each head,
+    rotating the prefix's two halves against each other (as the JAX
+    package's ``_rotary`` computes). x: [B, S, H, D], positions: [B, S]."""
+    if rotary_dim == 0:
+        return x
+    rot, rest = x[..., :rotary_dim], x[..., rotary_dim:]
+    half = rotary_dim // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(
+        half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = rot[..., :half], rot[..., half:]
+    rot_out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot_out, rest], dim=-1)
+
+
+def _dot_attention(q, k, v):
+    """Causal attention; fp32 softmax. q,k,v: [B, S, H, D]/[B, S, KVH, D]."""
+    B, S, H, D = q.shape
+    kvh = k.shape[2]
+    if kvh != H:  # GQA: repeat KV heads
+        rep = H // kvh
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    logits = logits.float()
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(causal, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attention(q, k, v, cfg: GPTConfig):
+    if cfg.attn_impl == "dot":
+        return _dot_attention(q, k, v)
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, causal=True, blk_q=cfg.attn_blk_q,
+                               blk_k=cfg.attn_blk_k)
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} (sequence parallelism) is a later "
+            f"slice of the port; use 'dot' or 'flash'")
+    raise ValueError(f"Unknown attn_impl {cfg.attn_impl!r}")
+
+
+# -- modules ------------------------------------------------------------
+
+def _empty(shape, cfg: GPTConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype,
+                                    device=device))
+
+
+class Block(nn.Module):
+    """One transformer block; parameter names and shapes are those of one
+    layer of the JAX package's stacked ``params["layers"]``."""
+
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        h, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        self.ln1_scale = _empty((d,), cfg, device)
+        self.ln1_bias = _empty((d,), cfg, device)
+        self.wq = _empty((d, h, hd), cfg, device)
+        self.wk = _empty((d, kvh, hd), cfg, device)
+        self.wv = _empty((d, kvh, hd), cfg, device)
+        self.wo = _empty((h, hd, d), cfg, device)
+        self.b_out = _empty((d,), cfg, device)
+        self.w_in = _empty((d, f), cfg, device)
+        self.b_in = _empty((f,), cfg, device)
+        self.w_out = _empty((f, d), cfg, device)
+        if not cfg.parallel_block:
+            self.ln2_scale = _empty((d,), cfg, device)
+            self.ln2_bias = _empty((d,), cfg, device)
+
+    def forward(self, x, positions, cfg: GPTConfig):
+        """x: [B, S, d] → [B, S, d]."""
+        dt = cfg.dtype
+        B, S, d = x.shape
+        h = _layernorm(x, self.ln1_scale, self.ln1_bias, cfg.layernorm_eps)
+
+        def proj(w):  # [d, heads, hd] → [B, S, heads, hd]
+            return (h @ w.to(dt).reshape(d, -1)).view(B, S, w.shape[1],
+                                                      w.shape[2])
+
+        q = _rotary(proj(self.wq), positions, cfg.rotary_dim)
+        k = _rotary(proj(self.wk), positions, cfg.rotary_dim)
+        v = proj(self.wv)
+        attn = _attention(q, k, v, cfg)
+        attn_out = attn.reshape(B, S, -1) @ self.wo.to(dt).reshape(-1, d)
+
+        if cfg.parallel_block:
+            mlp_in = h  # GPT-J: shared LN feeds both branches
+        else:
+            x = x + attn_out
+            mlp_in = _layernorm(x, self.ln2_scale, self.ln2_bias,
+                                cfg.layernorm_eps)
+        ff = mlp_in @ self.w_in.to(dt)
+        ff = F.gelu(ff + self.b_in.to(dt), approximate="tanh")
+        mlp_out = ff @ self.w_out.to(dt) + self.b_out.to(dt)
+        if cfg.parallel_block:
+            return x + attn_out + mlp_out
+        return x + mlp_out
+
+
+class GPT(nn.Module):
+    """The GPT model. Parameters are allocated uninitialised; build one
+    with :func:`init` (random) or :func:`from_jax_params` (carried over
+    from the JAX package)."""
+
+    def __init__(self, cfg: GPTConfig, device: DeviceLike = None):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "MoE GPT configs (n_experts > 0) are a later slice of the "
+                "port")
+        dev = resolve_device(device)
+        d, v = cfg.d_model, cfg.vocab_size
+        self.cfg = cfg
+        self.wte = _empty((v, d), cfg, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dev)
+                                    for _ in range(cfg.n_layers))
+        self.lnf_scale = _empty((d,), cfg, dev)
+        self.lnf_bias = _empty((d,), cfg, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = _empty((d, v), cfg, dev)
+            self.lm_head_bias = _empty((v,), cfg, dev)
+
+    def hidden_states(self, tokens, positions=None):
+        """tokens [B, S] int → (final-layernormed hidden [B, S, d], aux)."""
+        B, S = tokens.shape
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x = F.embedding(tokens, self.wte).to(self.cfg.dtype)
+        for block in self.blocks:
+            x = block(x, positions, self.cfg)
+        x = _layernorm(x, self.lnf_scale, self.lnf_bias,
+                       self.cfg.layernorm_eps)
+        # The MoE load-balancing term; 0 for the dense models served here.
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _head(self, x):
+        dt = self.cfg.dtype
+        if self.cfg.tie_embeddings:
+            return x @ self.wte.to(dt).T
+        return x @ self.lm_head.to(dt) + self.lm_head_bias.to(dt)
+
+    def forward_with_aux(self, tokens, positions=None):
+        """tokens [B, S] → (logits [B, S, vocab] in cfg.dtype, aux)."""
+        x, aux = self.hidden_states(tokens, positions)
+        return self._head(x), aux
+
+    def forward(self, tokens, positions=None):
+        """tokens [B, S] int → logits [B, S, vocab] (compute dtype)."""
+        return self.forward_with_aux(tokens, positions)[0]
+
+
+# -- parameters ---------------------------------------------------------
+
+def init(cfg: GPTConfig, generator: torch.Generator,
+         device: DeviceLike = None) -> GPT:
+    """A model with the JAX package's init distributions (GPT-2-style
+    scaled normal: std 0.02, output projections 0.02/sqrt(2L); LayerNorm
+    scales 1, biases 0), drawn from ``generator``, which must live on
+    ``device``. The draws differ from ``jax.random``'s for the same seed."""
+    model = GPT(cfg, device)
+    std = 0.02
+    out_std = std / math.sqrt(2 * cfg.n_layers)
+    normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
+              "w_in": std, "wo": out_std, "w_out": out_std}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in normal:
+                draw = torch.randn(p.shape, generator=generator,
+                                   dtype=torch.float32, device=p.device)
+                p.copy_(draw * normal[leaf])
+            elif leaf.endswith("_scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return model
+
+
+def _assign(param: nn.Parameter, arr, name: str) -> None:
+    t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
+                         f"the config's {tuple(param.shape)}")
+    param.copy_(t)
+
+
+def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
+                    device: DeviceLike = None) -> GPT:
+    """The port's model holding exactly the values of ``params``: the
+    nested dict that ``ray_tpu.models.gpt.init`` returns, with numpy
+    leaves and layers stacked on a leading ``[L, ...]`` axis. Values are
+    copied into ``cfg.param_dtype`` (exact when the leaves are of that
+    dtype)."""
+    model = GPT(cfg, device)
+    layers = params["layers"]
+    with torch.no_grad():
+        for name, p in model.named_parameters(recurse=False):
+            _assign(p, params[name], name)
+        for i, block in enumerate(model.blocks):
+            for name, p in block.named_parameters():
+                _assign(p, np.asarray(layers[name])[i], f"layers.{name}[{i}]")
+    return model
+
+
+__all__ = ["GPT", "GPTConfig", "PRESETS", "Block", "config",
+           "flops_per_token", "from_jax_params", "init"]
