@@ -11,22 +11,36 @@ printed:
 1. Environment: torch, CUDA, the card, its power limit, nvcc.
 2. Build: the port's CUDA kernels from this checkout's sources.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
-   version on the card, at the serving shape and at an fp32 GQA shape;
-   times of the kernel, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick only, never called by
-   the port) beside the least time the card could take.
+   version on the card, at an fp32 GQA shape, the serving shape and the
+   training shape; then K2 and K3 (the backward: dq, and dk/dv) against
+   theirs, at the training shape and at an fp32 GQA shape. Times of each
+   kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` forward or backward (a yardstick
+   only, never called by the port) beside the least time the card could
+   take.
 4. Serving: gpt-1.3b at full width (random weights from a seeded
    generator, bf16 compute, flash attention) answers 8 requests, arriving
    while it decodes, through the port's ContinuousBatcher; later requests
    must join a running batch, and K1 must run once per layer per step.
    Then the same step under dot attention, and gpt-micro on the card
    against the CPU, check what comes out.
-5. One JSON line of kernels; the last line is the result.
+5. Training: gpt-1.3b at full width and depth takes 8 steps of the JAX
+   package's headline recipe (batch 12 x 1024, flash attention, full
+   remat, chunked loss, Adafactor) through the port's train step: 2
+   warm-up steps, 6 timed. The step-0 loss must be that of random logits,
+   the first update must leave every parameter as it was, and each step
+   must launch K1 48 times (forward and remat) and K2 and K3 24 times.
+   Then steps under selective remat, which must launch K1 only 24 times
+   (its out and lse are kept), a profile of one step, and gpt-micro's
+   first gradients and train step on the card against the CPU (3 steps,
+   accumulation 1 and 2).
+6. One JSON line of kernels; the last line is the result.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import pathlib
 import re
@@ -65,8 +79,44 @@ FLASH_VS_DOT_TOL = 0.25
 # the CPU: the bound of tests/test_torch_gpt.py (summation order only).
 MICRO_TOL = 1e-4
 
+# K2/K3 against the plain backward (tests/test_torch_cuda_kernels.py's
+# bounds, atol and rtol). fp32: tests/test_ops.py's backward bound. bf16:
+# both round the gradients out to bf16 and the kernels also round p and ds
+# to bf16 where they multiply, as K1 rounds p: K1's 2e-2.
+BWD_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+# gpt-micro in fp32, 3 train steps on the card (K1-K3) against the CPU
+# (plain versions) from the same weights and batches: the loss to
+# summation order (1e-5 relative, tests/test_torch_train_step.py). The
+# parameters by the size of what the steps changed: AdamW divides each
+# element's step by its gradient's RMS, so an element whose gradient is
+# within a few eps (1e-8) of 0 moves by a different fraction of the
+# learning rate when the gradient's summation order changes (on the CPU,
+# dot against flash attention moves single wte entries by 2.1e-5 of a
+# 2.0e-3 step, 7e-5 of the step's norm). Each tensor's difference is held
+# to 1e-3 of the norm of its change; a wrong gradient changes it by O(1).
+MICRO_LOSS_RTOL = 1e-5
+MICRO_UPDATE_RTOL = 1e-3
+# The first step's gradients, card (K1-K3) against CPU, before AdamW
+# (whose update would hide a wrong gradient's scale): each tensor's
+# difference over its norm. fp32 sums in different orders: the 1e-4 of
+# MICRO_TOL; a gradient scaled or summed wrongly differs by O(1).
+MICRO_GRAD_RTOL = 1e-4
+
 DEVICE = "cuda"
 SERVE_PRESET = "gpt-1.3b"
+# The JAX package's headline training recipe (bench.py, bench_gptj6b).
+TRAIN_PRESET = "gpt-1.3b"
+TRAIN_BATCH, TRAIN_SEQ = 12, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+SELECTIVE_STEPS = 3
+TRAIN_OVERRIDES = dict(attn_impl="flash", remat=True, remat_policy="full",
+                       loss_chunk=4096)
+# Step-0 loss of random logits: after the final LayerNorm each hidden unit
+# has variance 1, so a logit of the N(0, 0.02^2) head has std
+# 0.02 * sqrt(2048) = 0.905, and the cross-entropy of a random target is
+# ln(50304) + 0.905^2 / 2 = 11.24.
+LOSS0, LOSS0_TOL = 11.24, 0.3
 NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
@@ -132,7 +182,7 @@ def phase_build():
         kernel, spill = "?", ""
         for line in log.read_text().splitlines():
             if "Compiling entry" in line:
-                m = re.search(r"(flash_fwd_[a-z]+_kernel)ILi(\d+)E", line)
+                m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E", line)
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
             elif "spill" in line:
                 spill = line.strip()
@@ -159,13 +209,21 @@ def _median_ms(torch, fn, repeats):
     return statistics.median(times)
 
 
-def _bound_ms(B, S, H, KVH, D, dtype_name, causal):
-    """Least time for K1's work: each input read once and each output
-    written once, against the products the causal mask leaves."""
+def _bound_ms(B, S, H, KVH, D, dtype_name, causal, kernel="fwd"):
+    """Least time for a flash kernel's work: each input read once and each
+    output written once, against the products the causal mask leaves.
+    K1 reads q, k, v and writes out and lse: 2 products (4 D flops) per
+    pair. K2 reads q, k, v, dO, lse and delta and writes dq: 3 products
+    (6 D). K3 reads the same and writes dk and dv: 4 products (8 D)."""
     elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (2 * B * S * H * D + 2 * B * S * KVH * D) * elt + B * H * S * 4
+    q_elems, kv_elems, rows = B * S * H * D, B * S * KVH * D, B * H * S
+    elems, fp32_rows, flops_per_pair = {
+        "fwd": (2 * q_elems + 2 * kv_elems, rows, 4),
+        "dq": (3 * q_elems + 2 * kv_elems, 2 * rows, 6),
+        "dkv": (2 * q_elems + 4 * kv_elems, 2 * rows, 8)}[kernel]
+    nbytes = elems * elt + fp32_rows * 4
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
+    flops = flops_per_pair * B * H * D * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -200,15 +258,11 @@ def _check_kernel(torch, fa, B, S, H, KVH, D, dtype, causal, blk, seed):
     return q, k, v, max(err_out, err_lse), dname
 
 
-def phase_kernel_check(torch):
+def _k1_times(torch, fa, q, k, v, dname):
+    """K1's time at q, k, v (bf16, causal) beside its plain version's,
+    SDPA's and the bound; printed and returned as a kernels-line row."""
     import torch.nn.functional as F
-    from ray_tpu_torch.ops import flash_attention as fa
-    # (b) fp32, head dim 80, non-causal, GQA 8 over 2.
-    _check_kernel(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256, 1)
-    # (a) the serving shape: gpt-1.3b's attention in one decode step.
-    B, S, H, D = NUM_SLOTS, SEQ, 16, 128
-    q, k, v, err, dname = _check_kernel(torch, fa, B, S, H, H, D,
-                                        torch.bfloat16, True, 512, 0)
+    B, S, H, D = q.shape
     kernel_ms = _median_ms(
         torch, lambda: fa._flash_forward_cuda(q, k, v, True), 30)
     plain_ms = _median_ms(
@@ -218,14 +272,125 @@ def phase_kernel_check(torch):
     sdpa_ms = _median_ms(
         torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True), 30)
-    bound_ms, bound_by = _bound_ms(B, S, H, H, D, dname, True)
+    bound_ms, bound_by = _bound_ms(B, S, H, k.shape[2], D, dname, True)
     print(f"K1 at B={B} S={S} H={H} D={D} bf16 causal: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"kernel at {bound_ms / kernel_ms:.2%} of the bound")
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa_ms}
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sdpa_ms}
+
+
+def phase_kernel_check(torch):
+    """K1 at an fp32 GQA shape, at the serving shape and at the training
+    shape; the kernels line reports the serving shape."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    # (b) fp32, head dim 80, non-causal, GQA 8 over 2.
+    _check_kernel(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256, 1)
+    # (a) the serving shape: gpt-1.3b's attention in one decode step.
+    q, k, v, err, dname = _check_kernel(torch, fa, NUM_SLOTS, SEQ, 16, 16,
+                                        128, torch.bfloat16, True, 512, 0)
+    row = {"max_abs_err": err, **_k1_times(torch, fa, q, k, v, dname)}
+    # (c) the training shape: gpt-1.3b's attention in one training step,
+    # where K1 runs once per layer forward and once per layer in remat.
+    q, k, v, _, _ = _check_kernel(torch, fa, TRAIN_BATCH, TRAIN_SEQ, 16, 16,
+                                  128, torch.bfloat16, True, 512, 2)
+    _k1_times(torch, fa, q, k, v, dname)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _check_backward(torch, fa, B, S, H, KVH, D, dtype, causal, blk, seed):
+    """K2 and K3 through their wrappers against the plain backward on the
+    same inputs (out and lse from K1)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (B, S, h, D), dtype=np.float32)).to("cuda", dtype)
+        for h in (H, KVH, KVH, H))
+    out, lse = fa._flash_forward_cuda(q, k, v, causal)
+    delta = fa._delta(out, g)
+    before = (fa.dq_launches, fa.dkv_launches)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    check((fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1),
+          "the backward wrappers did not launch K2 and K3")
+    ref_dq = fa._flash_bwd_dq_reference(q, k, v, g, lse, delta, causal, blk,
+                                        blk)
+    ref_dk, ref_dv = fa._flash_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                 causal, blk, blk)
+    dname = str(dtype).split(".")[-1]
+    tol = BWD_TOL[dname]
+    tag = (f"B={B} S={S} H={H}/{KVH} D={D} {dname} "
+           f"{'causal' if causal else 'full'}")
+    errs = {}
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        diff = (got.float() - ref.float()).abs()
+        errs[name] = float(diff.max())
+        check(bool((diff <= tol + tol * ref.float().abs()).all())
+              and bool(torch.isfinite(got.float()).all()),
+              f"{'K2' if name == 'dq' else 'K3'} disagrees with its plain "
+              f"version in {name} at {tag} (max |d| {errs[name]:.3e})")
+    print(f"backward check {tag}: max|ddq| {errs['dq']:.3e}, max|ddk| "
+          f"{errs['dk']:.3e}, max|ddv| {errs['dv']:.3e} (bound {tol:.0e} "
+          f"abs + rel)")
+    return (q, k, v, g, out, lse, delta), errs, dname
+
+
+def phase_backward_check(torch):
+    """K2/K3 at an fp32 GQA shape and at gpt-1.3b's training shape, with
+    times of each kernel, its plain version and SDPA's backward."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    _check_backward(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256,
+                    3)
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 16, 128
+    blk = 512  # the plain version's tiles: GPTConfig's attn_blk_q/k
+    (q, k, v, g, out, lse, delta), errs, dname = _check_backward(
+        torch, fa, B, S, H, H, D, torch.bfloat16, True, blk, 4)
+    dq_ms = _median_ms(
+        torch, lambda: fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True),
+        30)
+    dkv_ms = _median_ms(
+        torch, lambda: fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True),
+        30)
+    dq_plain = _median_ms(torch, lambda: fa._flash_bwd_dq_reference(
+        q, k, v, g, lse, delta, True, blk, blk), 5)
+    dkv_plain = _median_ms(torch, lambda: fa._flash_bwd_dkv_reference(
+        q, k, v, g, lse, delta, True, blk, blk), 5)
+    # The yardstick: SDPA's backward, which computes dq, dk and dv at once.
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2).contiguous()
+    sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
+        ref_out, (qt, kt, vt), gt, retain_graph=True), 30)
+    rows = {}
+    for name, kernel, ms, plain, err in (
+            ("K2", "dq", dq_ms, dq_plain, errs["dq"]),
+            ("K3", "dkv", dkv_ms, dkv_plain, max(errs["dk"], errs["dv"]))):
+        bound_ms, bound_by = _bound_ms(B, S, H, H, D, dname, True, kernel)
+        print(f"{name} at B={B} S={S} H={H} D={D} bf16 causal: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); kernel at {bound_ms / ms:.2%} of the bound")
+        rows[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": sdpa_bwd_ms}
+    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_ms:.4f} ms; "
+          f"K2 + K3 {dq_ms + dkv_ms:.4f} ms")
+    del q, k, v, g, out, lse, delta, qt, kt, vt, ref_out, gt
+    torch.cuda.empty_cache()
+    return rows["dq"], rows["dkv"]
+
+
+def _zero_counts(fa):
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def _counts(fa):
+    return fa.launches, fa.dq_launches, fa.dkv_launches
 
 
 # -- 4. serving ---------------------------------------------------------------
@@ -298,12 +463,12 @@ def phase_serving(torch):
                 engine.submit(prompt, max_new_tokens=MAX_NEW)))
         return await asyncio.gather(*futures)
 
-    fa.launches = 0
+    _zero_counts(fa)
     t0 = time.perf_counter()
     outs = asyncio.run(drive())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.launches
+    launches, dq_n, dkv_n = _counts(fa)
     stats = engine.stats()
     steps = stats["iterations"]
     check(len(outs) == N_REQUESTS, "not every request was answered")
@@ -317,6 +482,7 @@ def phase_serving(torch):
     check(launches == cfg.n_layers * steps,
           f"K1 launched {launches} times over {steps} steps, expected "
           f"{cfg.n_layers} per step")
+    check(dq_n == dkv_n == 0, "serving launched a backward kernel")
     print(f"serve: {N_REQUESTS} requests, one every {ARRIVAL_STEPS} steps, "
           f"prompt lengths {lens.tolist()}, {MAX_NEW} new tokens each; "
           f"{steps} steps in {wall:.3f} s "
@@ -340,7 +506,10 @@ def phase_serving(torch):
     check(gap <= FLASH_VS_DOT_TOL, "flash and dot logits disagree")
     del flash, dot
     _profile_step(torch, model, state["buf"])
+    # The engine's parked decode task and the engine refer to each other:
+    # collect the cycle, so the model's memory is free for later phases.
     del model, state, engine
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -348,14 +517,25 @@ def phase_serving(torch):
 def _profile_step(torch, model, buf):
     """Device time of one serving step's forward, by kernel (a profiler
     window after the counted run; the launches here are not counted)."""
-    from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
-        model(buf)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    def forward():
+        with torch.inference_mode():
             model(buf)
-            torch.cuda.synchronize()
+    forward()  # warm
+    torch.cuda.synchronize()
+    _profile(torch, forward, f"one forward of [{NUM_SLOTS}, {SEQ}]", 8)
+
+
+def _profile(torch, fn, what, top):
+    """Run fn once under torch.profiler and print its device time by
+    kernel, the top ``top`` kernels by device time, and the step's time on
+    the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
@@ -363,13 +543,23 @@ def _profile_step(torch, model, buf):
     if not total:
         print("profile: the profiler saw no device time (not measured)")
         return
-    print(f"profile: one forward of [{NUM_SLOTS}, {SEQ}], device time "
-          f"{total / 1e3:.3f} ms over {sum(e.count for e in events)} "
-          f"kernels; top by device time:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    print(f"profile: {what}, device time {total / 1e3:.3f} ms over "
+          f"{sum(e.count for e in events)} kernels in {wall * 1e3:.3f} ms "
+          f"on the host clock (profiler on); top by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.self_device_time_total / total:6.1%} x{e.count:<4d} "
               f"{e.key[:160]}")
+    classes = {"the port's flash kernels": ("flash_",),
+               "GEMMs (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma")}
+    rest = total
+    for label, keys in classes.items():
+        t = sum(e.self_device_time_total for e in events
+                if any(k in e.key for k in keys))
+        rest -= t
+        print(f"  by class: {label} {t / 1e3:.3f} ms ({t / total:.1%})")
+    print(f"  by class: everything else {rest / 1e3:.3f} ms "
+          f"({rest / total:.1%})")
 
 
 def phase_small_reference(torch):
@@ -392,17 +582,216 @@ def phase_small_reference(torch):
                .all()), "gpt-micro on the card disagrees with the CPU")
 
 
+# -- 5. training --------------------------------------------------------------
+
+def _train_batch(torch, cfg, batch, seq, seed, device):
+    """Random tokens as bench.py makes them: targets are the next token."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+            "targets": torch.from_numpy(toks[:, 1:]).to(device)}
+
+
+def phase_training(torch):
+    """gpt-1.3b's headline recipe through the port's train step."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt.config(TRAIN_PRESET, **TRAIN_OVERRIDES)
+    opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, optimizer=opt, seed=0, device=DEVICE)
+    step = ts.make_train_step(cfg, optimizer=opt)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, DEVICE)
+    model = state["params"]
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    print(f"train: {TRAIN_PRESET} ({cfg.num_params() / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_OVERRIDES}, Adafactor lr "
+          f"1e-4; state initialised in {time.perf_counter() - t0:.2f} s")
+
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    losses, step_s, per_step = [], [], []
+    _zero_counts(fa)
+    for i in range(n_steps):
+        if i == TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            same = all(torch.equal(p, b)
+                       for p, b in zip(model.parameters(), before))
+            check(same, "the first update changed a parameter")
+            del before
+    counts = _counts(fa)
+    peak_full = torch.cuda.max_memory_allocated()
+
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    check(all(c == per_layer for c in per_step),
+          f"launches per step (K1, K2, K3) {per_step}, expected {per_layer}")
+    check(np.isfinite(losses).all() and abs(losses[0] - LOSS0) <= LOSS0_TOL,
+          f"step-0 loss {losses[0]} is not within {LOSS0_TOL} of {LOSS0}")
+    timed = step_s[TRAIN_WARMUP:]
+    mean_s = statistics.mean(timed)
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / mean_s
+    mfu = tokens_s * gpt.flops_per_token(cfg) / PEAK_FLOPS["bfloat16"]
+    print(f"train: losses {[round(x, 5) for x in losses]}; first update "
+          f"left every parameter unchanged")
+    print(f"train: {TRAIN_STEPS} timed steps: "
+          f"{[round(t * 1e3, 2) for t in timed]} ms; mean {mean_s * 1e3:.2f}"
+          f" ms/step (std {statistics.pstdev(timed) * 1e3:.2f}), "
+          f"{tokens_s:.1f} tokens/s, model FLOPs "
+          f"{gpt.flops_per_token(cfg):.4e}/token, MFU {mfu:.2%} of the "
+          f"989 TFLOP/s bf16 peak; peak memory "
+          f"{peak_full / 2**30:.2f} GiB (full remat)")
+    print(f"train: launches over {n_steps} steps (K1, K2, K3) {counts} = "
+          f"{per_layer} per step")
+
+    # Memory of the loss and its gradients alone (activations and grads,
+    # above the parameters and optimizer state), under each remat policy.
+    for policy in ("full", "selective"):
+        model.cfg = replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = gpt.loss_fn(model, batch["tokens"], batch["targets"])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        print(f"train: {policy} remat: loss and gradients peak at "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
+              f"GiB above the {base / 2**30:.2f} GiB of state")
+        del loss, grads
+
+    # Steps under selective remat: their time, peak memory and launches.
+    # Each block keeps the flash forward's out and lse, so K1 runs once
+    # per layer (no re-run in the backward).
+    model.cfg = replace(cfg, remat_policy="selective")
+    sel_step = ts.make_train_step(model.cfg, optimizer=opt)
+    state, _ = sel_step(state, batch)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sel_s, sel_counts = [], []
+    for _ in range(SELECTIVE_STEPS):
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = sel_step(state, batch)
+        torch.cuda.synchronize()
+        sel_s.append(time.perf_counter() - t0)
+        sel_counts.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+    check(np.isfinite(float(metrics["loss"])), "selective remat loss")
+    sel_layer = (cfg.n_layers,) * 3
+    check(all(c == sel_layer for c in sel_counts),
+          f"selective remat launches per step (K1, K2, K3) {sel_counts}, "
+          f"expected {sel_layer}")
+    print(f"train: selective remat: {SELECTIVE_STEPS} steps "
+          f"{[round(t * 1e3, 2) for t in sel_s]} ms, mean "
+          f"{statistics.mean(sel_s) * 1e3:.2f} ms/step (full: "
+          f"{mean_s * 1e3:.2f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"(K1, K2, K3) {sel_layer} per step, loss "
+          f"{float(metrics['loss']):.5f}")
+    model.cfg = cfg
+
+    _profile(torch, lambda: step(state, batch),
+             f"one training step of {TRAIN_PRESET} (full remat)", 20)
+    del state, model, step, sel_step, metrics, batch
+    torch.cuda.empty_cache()
+    return counts, {"ms_per_step": mean_s * 1e3, "tokens_per_s": tokens_s,
+                    "mfu": mfu, "peak_gib": peak_full / 2**30}
+
+
+def phase_small_training(torch):
+    """gpt-micro (fp32) through the train step: K1-K3 on the card against
+    the plain versions on the CPU, 3 steps of AdamW from the same weights
+    and batches, at accumulation 1 and 2."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import train_step as ts
+    cfg = gpt.config("gpt-micro", attn_impl="flash")
+    for accum in (1, 2):
+        results = {}
+        for device in ("cpu", DEVICE):
+            opt = ts.default_optimizer(1e-3, warmup_steps=1)
+            model = gpt.init(cfg, torch.Generator().manual_seed(0), "cpu")
+            if device != "cpu":
+                card = gpt.GPT(cfg, device=device)
+                card.load_state_dict(model.state_dict())
+                model = card
+            state = {"params": model,
+                     "opt_state": opt.init(dict(model.named_parameters()),
+                                           gpt.leaf_groups(model)),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+            step = ts.make_train_step(cfg, optimizer=opt, accum_steps=accum)
+            batches = [_train_batch(torch, cfg, 4, 256, 10 + i, device)
+                       for i in range(3)]
+            # The first step's gradients, before the optimizer scales them.
+            loss, _ = gpt.loss_fn(model, batches[0]["tokens"],
+                                  batches[0]["targets"])
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            grads = {n: g.cpu() for n, g in zip(names, grads)}
+            losses = []
+            for b in batches:
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+            results[device] = (np.array(losses), {
+                n: p.detach().cpu() for n, p in model.named_parameters()},
+                grads)
+        (ref_l, ref_p, ref_g), (got_l, got_p, got_g) = (results["cpu"],
+                                                        results[DEVICE])
+        grad_err = max(float((got_g[n] - ref_g[n]).norm() / ref_g[n].norm())
+                       for n in ref_g)
+        print(f"gpt-micro fp32 gradients, card vs CPU: max over tensors of "
+              f"|dgrad| / |grad| {grad_err:.3e} (bound "
+              f"{MICRO_GRAD_RTOL:.0e})")
+        check(grad_err <= MICRO_GRAD_RTOL,
+              "gpt-micro gradients on the card disagree with the CPU")
+        p0 = dict(gpt.init(cfg, torch.Generator().manual_seed(0), "cpu")
+                  .named_parameters())
+        loss_err = float(np.abs(got_l / ref_l - 1).max())
+        update_err = max(float((got_p[n] - ref_p[n]).norm()
+                               / (ref_p[n] - p0[n].detach()).norm())
+                         for n in ref_p)
+        abs_err = max(float((got_p[n] - ref_p[n]).abs().max()) for n in ref_p)
+        print(f"gpt-micro fp32 train, accumulation {accum}: losses "
+              f"{got_l.round(6).tolist()}; card vs CPU max rel dloss "
+              f"{loss_err:.3e} (bound {MICRO_LOSS_RTOL:.0e}), max over "
+              f"tensors of |dparam| / |update| {update_err:.3e} (bound "
+              f"{MICRO_UPDATE_RTOL:.0e}), max |dparam| {abs_err:.3e}")
+        check(loss_err <= MICRO_LOSS_RTOL and update_err <= MICRO_UPDATE_RTOL,
+              f"gpt-micro training on the card disagrees with the CPU at "
+              f"accumulation {accum}")
+
+
 def main():
     torch, name = phase_environment()
     phase_build()
     k1 = phase_kernel_check(torch)
-    launches = phase_serving(torch)
+    k2, k3 = phase_backward_check(torch)
+    k1_serve = phase_serving(torch)
     phase_small_reference(torch)
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:37",
-        "launches": launches, **k1}]
+    (k1_train, k2_train, k3_train), _ = phase_training(torch)
+    phase_small_training(torch)
+    src = "ray_tpu_torch/ops/csrc/"
+    ref = "ray_tpu/ops/flash_attention.py:"
+    kernels = [
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": ref + "37", "launches": k1_serve + k1_train, **k1},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": src + "flash_bwd.cu", "replaces": ref + "88",
+         "launches": k2_train, **k2},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": src + "flash_bwd.cu", "replaces": ref + "131",
+         "launches": k3_train, **k3}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""GPT family — the dense inference path of ``ray_tpu/models/gpt.py`` in
-PyTorch.
+"""GPT family — the dense path of ``ray_tpu/models/gpt.py`` in PyTorch:
+forward, loss and rematerialisation.
 
 Same configuration fields and presets, same parameter shapes and names
 (layers are a ``ModuleList`` here, where the JAX package stacks them on a
@@ -13,24 +13,33 @@ leading axis for ``lax.scan``), same numerics:
 * the tanh form of GELU (``jax.nn.gelu``'s default);
 * the -1e30 causal mask fill of the dot attention.
 
-``attn_impl="flash"`` runs attention through the port's flash kernel
-(``ops/flash_attention.py``). The MoE FFN, ring/Ulysses attention, the
-loss and rematerialisation belong to later slices of the port.
+``attn_impl="flash"`` runs attention through the port's flash kernels
+(``ops/flash_attention.py``: K1 forward, K2/K3 backward). :func:`loss_fn`
+is the JAX package's next-token cross-entropy, chunked over the vocab
+head when ``loss_chunk`` is set. With ``remat`` each block is
+checkpointed (``torch.utils.checkpoint``) while gradients are recorded:
+``"full"`` saves only the block's input and recomputes the block in the
+backward; ``"selective"`` also keeps the outputs of the block's matmuls
+and of the flash forward, so the backward recomputes only the cheap
+elementwise work. The MoE FFN and ring/Ulysses attention belong to later
+slices of the port.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional
+from functools import partial
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.flash_attention import _flash_forward, flash_attention
 
 
 @dataclass(frozen=True)
@@ -47,8 +56,7 @@ class GPTConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
-    # Training-only fields, kept so configs carry over unchanged; the
-    # training slice of the port reads them.
+    # Training: block rematerialisation and the chunked loss head.
     remat: bool = True
     remat_policy: str = "full"  # "full" | "selective"
     loss_chunk: int = 0
@@ -191,13 +199,124 @@ def _attention(q, k, v, cfg: GPTConfig):
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=True, blk_q=cfg.attn_blk_q,
-                               blk_k=cfg.attn_blk_k)
+        return _recorded(
+            lambda: _flash_forward(q, k, v, True, cfg.attn_blk_q,
+                                   cfg.attn_blk_k),
+            lambda saved: flash_attention(q, k, v, True, cfg.attn_blk_q,
+                                          cfg.attn_blk_k, saved),
+            lambda: flash_attention(q, k, v, True, cfg.attn_blk_q,
+                                    cfg.attn_blk_k))
     if cfg.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (sequence parallelism) is a later "
             f"slice of the port; use 'dot' or 'flash'")
     raise ValueError(f"Unknown attn_impl {cfg.attn_impl!r}")
+
+
+# -- rematerialisation --------------------------------------------------
+
+class _Recording:
+    """What remat_policy="selective" keeps of one block: the output of
+    every matmul (the q, k, v, output and FFN projections; among them the
+    attn_q, attn_k, attn_v and ffn_in the JAX package names, taken before
+    rotary) and the flash forward's (out, lse) (attn_raw). The forward
+    appends them; the backward's replay takes them back in order."""
+
+    def __init__(self):
+        self.outputs = []
+        self.replaying = False
+
+
+_RECORDING: Optional[_Recording] = None  # of the block being run
+
+
+def _recorded(compute, replay, plain):
+    """Under a selective block: ``compute()``, kept, in its forward;
+    ``replay(kept value)`` in its backward. Else ``plain()``."""
+    rec = _RECORDING
+    if rec is None:
+        return plain()
+    if rec.replaying:
+        return replay(rec.outputs.pop(0))
+    value = compute()
+    rec.outputs.append(value)
+    return value[0] if isinstance(value, tuple) else value
+
+
+class _KeptMatmul(torch.autograd.Function):
+    """``a @ b`` for a ``[..., K]`` by a ``[K, N]`` whose value was kept:
+    returns it, and differentiates the product."""
+
+    @staticmethod
+    def forward(ctx, a, b, out):
+        ctx.save_for_backward(a, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gb = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ b.T, gb, None
+
+
+def _matmul(a, b):
+    return _recorded(lambda: a @ b,
+                     lambda out: _KeptMatmul.apply(a, b, out),
+                     lambda: a @ b)
+
+
+class _SelectiveBlock(torch.autograd.Function):
+    """One block under remat_policy="selective". The forward runs it
+    without a graph and keeps its input and a :class:`_Recording`; the
+    backward replays it with the kept values handed back, so it recomputes
+    LayerNorm, rotary, GELU and the casts (and dot attention), but no
+    matmul and no K1, and differentiates the replay."""
+
+    @staticmethod
+    def forward(ctx, block, cfg, positions, x, *params):
+        global _RECORDING
+        rec = _Recording()
+        _RECORDING = rec
+        try:
+            y = block(x, positions, cfg)
+        finally:
+            _RECORDING = None
+        ctx.block, ctx.cfg, ctx.recording = block, cfg, rec
+        ctx.save_for_backward(positions, x)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        global _RECORDING
+        positions, x = ctx.saved_tensors
+        params = list(ctx.block.parameters())
+        ctx.recording.replaying = True
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            _RECORDING = ctx.recording
+            try:
+                y = ctx.block(x, positions, ctx.cfg)
+            finally:
+                _RECORDING = None
+            grads = torch.autograd.grad(y, [x] + params, grad)
+        return (None, None, None, *grads)
+
+
+def _remat_block(block: "Block", cfg: GPTConfig):
+    """``block`` under the config's remat policy (the JAX package's
+    ``hidden_states``): the block as it is when remat is off or nothing
+    records gradients."""
+    if not cfg.remat:
+        return block
+    if cfg.remat_policy not in ("full", "selective"):
+        raise ValueError(f"Unknown remat_policy {cfg.remat_policy!r}; "
+                         "expected 'full' or 'selective'")
+    if not torch.is_grad_enabled():
+        return block
+    if cfg.remat_policy == "selective":
+        return lambda x, positions, cfg: _SelectiveBlock.apply(
+            block, cfg, positions, x, *block.parameters())
+    return partial(checkpoint, block, use_reentrant=False)
 
 
 # -- modules ------------------------------------------------------------
@@ -236,14 +355,15 @@ class Block(nn.Module):
         h = _layernorm(x, self.ln1_scale, self.ln1_bias, cfg.layernorm_eps)
 
         def proj(w):  # [d, heads, hd] → [B, S, heads, hd]
-            return (h @ w.to(dt).reshape(d, -1)).view(B, S, w.shape[1],
-                                                      w.shape[2])
+            return _matmul(h, w.to(dt).reshape(d, -1)).view(
+                B, S, w.shape[1], w.shape[2])
 
         q = _rotary(proj(self.wq), positions, cfg.rotary_dim)
         k = _rotary(proj(self.wk), positions, cfg.rotary_dim)
         v = proj(self.wv)
         attn = _attention(q, k, v, cfg)
-        attn_out = attn.reshape(B, S, -1) @ self.wo.to(dt).reshape(-1, d)
+        attn_out = _matmul(attn.reshape(B, S, -1),
+                           self.wo.to(dt).reshape(-1, d))
 
         if cfg.parallel_block:
             mlp_in = h  # GPT-J: shared LN feeds both branches
@@ -251,9 +371,9 @@ class Block(nn.Module):
             x = x + attn_out
             mlp_in = _layernorm(x, self.ln2_scale, self.ln2_bias,
                                 cfg.layernorm_eps)
-        ff = mlp_in @ self.w_in.to(dt)
-        ff = F.gelu(ff + self.b_in.to(dt), approximate="tanh")
-        mlp_out = ff @ self.w_out.to(dt) + self.b_out.to(dt)
+        ff = F.gelu(_matmul(mlp_in, self.w_in.to(dt)) + self.b_in.to(dt),
+                    approximate="tanh")
+        mlp_out = _matmul(ff, self.w_out.to(dt)) + self.b_out.to(dt)
         if cfg.parallel_block:
             return x + attn_out + mlp_out
         return x + mlp_out
@@ -289,7 +409,7 @@ class GPT(nn.Module):
             positions = torch.arange(S, device=tokens.device).expand(B, S)
         x = F.embedding(tokens, self.wte).to(self.cfg.dtype)
         for block in self.blocks:
-            x = block(x, positions, self.cfg)
+            x = _remat_block(block, self.cfg)(x, positions, self.cfg)
         x = _layernorm(x, self.lnf_scale, self.lnf_bias,
                        self.cfg.layernorm_eps)
         # The MoE load-balancing term; 0 for the dense models served here.
@@ -309,6 +429,71 @@ class GPT(nn.Module):
     def forward(self, tokens, positions=None):
         """tokens [B, S] int → logits [B, S, vocab] (compute dtype)."""
         return self.forward_with_aux(tokens, positions)[0]
+
+
+# -- loss ---------------------------------------------------------------
+
+def _ce_stats(logits, targets, mask, z_loss: float):
+    """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
+    hits by first-max argmax, as ``jnp.argmax``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - tgt
+    if z_loss:
+        nll = nll + z_loss * logz ** 2
+    hits = (logits.argmax(-1) == targets).float()
+    return (nll * mask).sum(), (hits * mask).sum()
+
+
+def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in fp32 (+ optional z-loss) → (loss,
+    {"loss", "accuracy", "perplexity"}), all 0-d tensors on the model's
+    device.
+
+    With ``cfg.loss_chunk > 0`` the head matmul and fp32 softmax run per
+    chunk of tokens under a checkpoint, so one chunk's fp32 logits exist
+    at a time (in the backward too); a chunk that does not divide B·S is
+    lowered to its largest divisor, as in the JAX package."""
+    cfg = model.cfg
+    x, _ = model.hidden_states(tokens)
+    B, S = tokens.shape
+    if mask is None:
+        mask32 = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    else:
+        mask32 = mask.float()
+    denom = torch.clamp_min(mask32.sum(), 1.0)
+
+    def chunk_stats(x_c, t_c, m_c):
+        return _ce_stats(model._head(x_c), t_c, m_c, z_loss)
+
+    T = B * S
+    chunk = cfg.loss_chunk
+    if chunk and T % chunk and T > chunk:
+        chunk = max(c for c in range(1, chunk + 1) if T % c == 0)
+    if chunk and T > chunk:
+        nll_sum = hit_sum = torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
+        xf = x.reshape(T // chunk, chunk, x.shape[-1])
+        tf = targets.reshape(T // chunk, chunk)
+        mf = mask32.reshape(T // chunk, chunk)
+        for x_c, t_c, m_c in zip(xf, tf, mf):
+            if torch.is_grad_enabled():
+                nll_c, hit_c = checkpoint(chunk_stats, x_c, t_c, m_c,
+                                          use_reentrant=False)
+            else:
+                nll_c, hit_c = chunk_stats(x_c, t_c, m_c)
+            nll_sum = nll_sum + nll_c
+            hit_sum = hit_sum + hit_c
+    else:
+        nll_sum, hit_sum = chunk_stats(x, targets, mask32)
+
+    ce = nll_sum / denom
+    acc = hit_sum.detach() / denom
+    # Perplexity from the cross-entropy alone, as in the JAX package.
+    return ce, {"loss": ce.detach(), "accuracy": acc,
+                "perplexity": torch.exp(torch.clamp_max(ce.detach(), 20.0))}
 
 
 # -- parameters ---------------------------------------------------------
@@ -364,5 +549,33 @@ def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
     return model
 
 
+def leaf_groups(model: GPT) -> Dict[str, List[str]]:
+    """The JAX package's parameter leaves, each with the names of the
+    port's tensors that hold it, in the structure :func:`to_jax_params`
+    walks: ``"wte"`` → ``["wte"]``; a layer leaf such as ``"layers.wq"``
+    → ``["blocks.0.wq", ..., "blocks.{L-1}.wq"]``, the slices of its
+    leading ``[L, ...]`` axis in order."""
+    groups = {name: [name]
+              for name, _ in model.named_parameters(recurse=False)}
+    for name, _ in model.blocks[0].named_parameters():
+        groups[f"layers.{name}"] = [f"blocks.{i}.{name}"
+                                    for i in range(len(model.blocks))]
+    return groups
+
+
+def to_jax_params(model: GPT) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params`: the JAX package's nested
+    parameter dict with numpy leaves, layers stacked on a leading ``[L,
+    ...]`` axis."""
+    params = {name: p.detach().cpu().numpy()
+              for name, p in model.named_parameters(recurse=False)}
+    params["layers"] = {
+        name: np.stack([dict(b.named_parameters())[name].detach().cpu()
+                        .numpy() for b in model.blocks])
+        for name, _ in model.blocks[0].named_parameters()}
+    return params
+
+
 __all__ = ["GPT", "GPTConfig", "PRESETS", "Block", "config",
-           "flops_per_token", "from_jax_params", "init"]
+           "flops_per_token", "from_jax_params", "init", "leaf_groups",
+           "loss_fn", "to_jax_params"]

@@ -45,7 +45,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::kNegInf;
+using flash::mma_bf16;
+using flash::mma_pitch;
+using flash::pack_bf16;
 
 constexpr int kBlockM = 64;          // query rows per thread block
 constexpr int kBlockN = 64;          // key/value rows per tile
@@ -56,7 +63,6 @@ constexpr int kColsPerLane = kBlockN / kColLanes;
 // FMA kernel: row pitch of the probability tile; 66 puts the 4 row groups of a warp 8
 // banks apart, so a warp's 32 stores hit 32 banks.
 constexpr int kLdP = kBlockN + 2;
-constexpr float kNegInf = -1e30f;
 
 static_assert(kThreads == (kBlockM / kRowsPerThread) * kColLanes,
               "thread layout must cover the tile");
@@ -224,27 +230,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile: a is 16x16 (row-major fragments), b is
-// 16x8 (column-major fragments), d is 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shared-memory pitches, in bf16 elements. D + 8 and kBlockN + 8 put the 8
-// rows a warp's fragment load touches 4 banks apart (12 for D = 16, 80),
-// so its 32 lanes hit 32 banks.
-template <int D>
-__host__ __device__ constexpr int mma_pitch() { return D + 8; }
+// Pitch of the transposed value tile, in bf16 elements (see mma_pitch).
 constexpr int kVtPitch = kBlockN + 8;
 
 template <int D>

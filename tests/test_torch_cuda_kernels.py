@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.models import gpt
 from ray_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -23,6 +24,12 @@ pytestmark = pytest.mark.cuda
 # fp32 from the same bf16 inputs in both.
 TOL = {torch.float32: {"out": 1e-4, "lse": 1e-4},
        torch.bfloat16: {"out": 2e-2, "lse": 1e-3}}
+# Backward (dq, dk, dv) against the plain version on the same inputs.
+# fp32: the bound of tests/test_ops.py's backward tests (atol 2e-3, rtol
+# 1e-3; the sums run over up to 4 heads x 256 rows). bf16: both round the
+# gradients out to bf16 (2^-8 relative), and the kernels also round p and
+# ds to bf16 (2^-9) where they multiply, as K1 rounds p: K1's 2e-2.
+BWD_TOL = {torch.float32: (2e-3, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -74,6 +81,19 @@ def test_flash_kernel_at_the_serving_shape(cuda):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
+def test_flash_kernel_at_the_training_shape(cuda):
+    """gpt-1.3b's attention in one training step: B=12, S=1024, 16 heads
+    of 128, bf16, causal (48 launches per step under full remat)."""
+    q, k, v = _qkv(12, 1024, 16, 16, 128, torch.bfloat16, seed=2,
+                   device=cuda)
+    out, lse = fa._flash_forward(q, k, v, True, 512, 512)
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, True, 512, 512)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+
+
 def test_ragged_length_takes_blockwise_route_without_a_launch(cuda):
     q, k, v = _qkv(1, 100, 4, 4, 64, torch.float32, seed=1, device=cuda)
     before = fa.launches
@@ -98,3 +118,116 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa._flash_forward_cuda(q[:, :96], k[:, :96], v[:, :96], True)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa._flash_forward_cuda(q, k.cpu(), v, True)
+
+
+def _check_backward(q, k, v, causal, blk_q, blk_k, seed):
+    """Run K1, then K2/K3 through the wrapper, against the plain backward
+    on the same out, lse and output gradient."""
+    out, lse = fa._flash_forward(q, k, v, causal, blk_q, blk_k)
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(q.shape), dtype=np.float32)).to(q.device, q.dtype)
+    before = (fa.dq_launches, fa.dkv_launches)
+    grads = fa._flash_backward(q, k, v, out, lse, g, causal, blk_q, blk_k)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa._flash_backward_reference(q, k, v, out, lse, g, causal, blk_q,
+                                       blk_k)
+    atol, rtol = BWD_TOL[q.dtype]
+    for name, got, want, like in zip(("dq", "dk", "dv"), grads, ref,
+                                     (q, k, v)):
+        assert got.dtype == like.dtype and got.shape == like.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("kv_heads", [8, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_flash_backward_kernels_match_plain_version(cuda, D, dtype, causal,
+                                                    kv_heads):
+    q, k, v = _qkv(2, 256, 8, kv_heads, D, dtype, seed=D + 1, device=cuda)
+    _check_backward(q, k, v, causal, 128, 256, seed=D + 2)
+
+
+def test_flash_backward_kernels_at_the_training_shape(cuda):
+    """gpt-1.3b's attention in one training step: B=12, S=1024, 16 heads
+    of 128, bf16, causal, 512x512 tiles in the plain version."""
+    q, k, v = _qkv(12, 1024, 16, 16, 128, torch.bfloat16, seed=4,
+                   device=cuda)
+    _check_backward(q, k, v, True, 512, 512, seed=5)
+
+
+def test_flash_attention_backward_launches_k2_and_k3_once(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(
+        2, 256, 8, 2, 64, torch.bfloat16, seed=6, device=cuda))
+    out = fa.flash_attention(q, k, v, True, 128, 128)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+def test_ragged_backward_differentiates_blockwise_without_a_launch(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(
+        1, 100, 4, 2, 64, torch.float32, seed=7, device=cuda))
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    fa.flash_attention(q, k, v, True).sum().backward()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+    assert k.grad.shape == k.shape
+
+
+def test_flash_backward_rejects_what_the_kernels_do_not_take(cuda):
+    q, k, v = _qkv(1, 128, 4, 4, 48, torch.float32, seed=8, device=cuda)
+    lse = torch.zeros((4, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa._flash_backward_cuda(q, k, v, q, lse, q, True)
+    q, k, v = _qkv(1, 128, 4, 4, 64, torch.float32, seed=9, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._flash_backward_cuda(q.half(), k.half(), v.half(), q.half(), lse,
+                                q.half(), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._flash_backward_cuda(q, k, v, q.transpose(1, 2).contiguous()
+                                .transpose(1, 2), lse, q, True)
+    with pytest.raises(ValueError, match="must match q"):
+        fa._flash_backward_cuda(q, k, v, q, lse, q[:, :, :2].contiguous(),
+                                True)
+    with pytest.raises(ValueError, match="S % 64"):
+        fa._flash_backward_cuda(q[:, :96], k[:, :96], v[:, :96], q[:, :96],
+                                lse, q[:, :96], True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa._flash_backward_cuda(q, k, v, q, lse.cpu(), q, True)
+
+
+def _remat_grads(policy, device):
+    cfg = gpt.config("gpt-tiny", attn_impl="flash", remat=True,
+                     remat_policy=policy)
+    model = gpt.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = gpt.GPT(cfg, device=device)
+    card.load_state_dict(model.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 128))).to(device)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    gpt.loss_fn(card, tokens, tokens)[0].backward()
+    torch.cuda.synchronize()
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    return ({n: p.grad for n, p in card.named_parameters()},
+            tuple(b - a for a, b in zip(before, after)), cfg.n_layers)
+
+
+def test_selective_remat_launches_k1_once_per_layer(cuda):
+    """Selective remat keeps K1's out and lse, so its backward launches no
+    K1; full remat launches it again in every layer's recompute. The
+    gradients agree (fp32: the same kernels on the same inputs)."""
+    sel, sel_n, L = _remat_grads("selective", cuda)
+    full, full_n, _ = _remat_grads("full", cuda)
+    assert sel_n == (L, L, L) and full_n == (2 * L, L, L)
+    for name, g in full.items():
+        torch.testing.assert_close(sel[name], g, atol=1e-6, rtol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
