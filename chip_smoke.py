@@ -9,15 +9,19 @@ Phases, in order; the first failure exits non-zero and no result line is
 printed:
 
 1. Environment: torch, CUDA, the card, its power limit, nvcc.
-2. Build: the port's CUDA kernels from this checkout's sources.
+2. Build: the port's CUDA kernels from this checkout's sources; ptxas's
+   registers and spills of every kernel, and the count of wgmma
+   (``HGMMA``) and TMA load (``UTMALDG``) instructions in the SASS of the
+   bf16 kernels of K1 and K3, which must use both.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
    version on the card, at an fp32 GQA shape, the serving shape and the
    training shape; then K2 and K3 (the backward: dq, and dk/dv) against
    theirs, at the training shape and at an fp32 GQA shape. Times of each
-   kernel, its plain version and PyTorch's
-   ``scaled_dot_product_attention`` forward or backward (a yardstick
-   only, never called by the port) beside the least time the card could
-   take.
+   kernel (per call through its wrapper, and per launch in a stream of
+   launches, which hides the host's share), its plain version and
+   PyTorch's ``scaled_dot_product_attention`` forward or backward (a
+   yardstick only, never called by the port) beside the least time the
+   card could take, and the rates the kernel reached.
 4. Serving: gpt-1.3b at full width (random weights from a seeded
    generator, bf16 compute, flash attention) answers 8 requests, arriving
    while it decodes, through the port's ContinuousBatcher; later requests
@@ -137,6 +141,12 @@ def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60)
 
 
+# The bf16 kernels built on wgmma fed by TMA (K1 and K3): their SASS must
+# hold both kinds of instruction.
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+KERNEL_NAME = re.compile(r"(flash_[a-z_]+_kernel)ILi(\d+)E")
+
+
 # -- 1. environment ---------------------------------------------------------
 
 def phase_environment():
@@ -176,20 +186,58 @@ def phase_build():
     seconds = time.perf_counter() - t0
     _build.load()
     print(f"build: {path.relative_to(HERE)} in {seconds:.2f} s")
-    # ptxas's report (-Xptxas -v): registers and spills of each kernel.
+    # ptxas's report (-Xptxas -v): registers and spills of each kernel,
+    # and any product it had to serialize.
     log = path.with_suffix(".log")
     if log.exists():
         kernel, spill = "?", ""
         for line in log.read_text().splitlines():
             if "Compiling entry" in line:
-                m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E", line)
+                m = KERNEL_NAME.search(line)
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
             elif "spill" in line:
                 spill = line.strip()
             elif "Used" in line:
                 regs = line.split("Used")[1].split(",")[0].strip()
                 print(f"  ptxas: {kernel}: {regs}; {spill}")
+            elif "Performance Loss" in line:
+                print(f"  ptxas: {line.strip()}")
+    _sass_counts(_build, path)
     return seconds
+
+
+def _sass_counts(_build, path):
+    """wgmma (HGMMA), TMA load (UTMALDG) and TMA store (UTMASTG)
+    instructions in the SASS of each instance of the wgmma kernels."""
+    nvcc = pathlib.Path(_build._nvcc())
+    tool = nvcc.parent / "cuobjdump"
+    if not tool.exists():
+        print(f"  sass: cuobjdump not found beside {nvcc}: HGMMA and "
+              f"UTMALDG not counted")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    counts, kernel = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            m = KERNEL_NAME.search(line)
+            kernel = (m.group(1), int(m.group(2))) if m else None
+            if kernel and kernel[0] in WGMMA_KERNELS:
+                counts[kernel] = dict.fromkeys(("HGMMA", "UTMALDG",
+                                                "UTMASTG"), 0)
+        elif kernel in counts:
+            for op in counts[kernel]:
+                counts[kernel][op] += f" {op}." in line or f" {op} " in line
+    for name in WGMMA_KERNELS:
+        dims = sorted(d for n, d in counts if n == name)
+        check(dims, f"no {name} in the library's SASS")
+        for d in dims:
+            c = counts[(name, d)]
+            print(f"  sass: {name}<{d}>: HGMMA {c['HGMMA']}, UTMALDG "
+                  f"{c['UTMALDG']}, UTMASTG {c['UTMASTG']}")
+            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{name}<{d}> has no wgmma or no TMA load in its SASS")
 
 
 # -- 3. kernel check ----------------------------------------------------------
@@ -209,9 +257,17 @@ def _median_ms(torch, fn, repeats):
     return statistics.median(times)
 
 
-def _bound_ms(B, S, H, KVH, D, dtype_name, causal, kernel="fwd"):
-    """Least time for a flash kernel's work: each input read once and each
-    output written once, against the products the causal mask leaves.
+def _median_ms_per_launch(torch, fn, repeats, launches=10):
+    """Median device time per launch over samples of ``launches``
+    launches back to back between two events: the host enqueues ahead of
+    the card, so its time per call is hidden."""
+    return _median_ms(torch, lambda: [fn() for _ in range(launches)],
+                      repeats) / launches
+
+
+def _work(B, S, H, KVH, D, dtype_name, causal, kernel="fwd"):
+    """Bytes and flops of a flash kernel's work: each input read once and
+    each output written once, and the products the causal mask leaves.
     K1 reads q, k, v and writes out and lse: 2 products (4 D flops) per
     pair. K2 reads q, k, v, dO, lse and delta and writes dq: 3 products
     (6 D). K3 reads the same and writes dk and dv: 4 products (8 D)."""
@@ -223,7 +279,13 @@ def _bound_ms(B, S, H, KVH, D, dtype_name, causal, kernel="fwd"):
         "dkv": (2 * q_elems + 4 * kv_elems, 2 * rows, 8)}[kernel]
     nbytes = elems * elt + fp32_rows * 4
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = flops_per_pair * B * H * D * pairs
+    return nbytes, flops_per_pair * B * H * D * pairs
+
+
+def _bound_ms(B, S, H, KVH, D, dtype_name, causal, kernel="fwd"):
+    """Least time for a flash kernel's work (:func:`_work`) at the card's
+    peak memory rate and peak rate for the input type, and which binds."""
+    nbytes, flops = _work(B, S, H, KVH, D, dtype_name, causal, kernel)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -258,25 +320,38 @@ def _check_kernel(torch, fa, B, S, H, KVH, D, dtype, causal, blk, seed):
     return q, k, v, max(err_out, err_lse), dname
 
 
+def _rates(B, S, H, KVH, D, dname, kernel, ms):
+    """The kernel's achieved TFLOP/s and GB/s at ``ms`` (its work from
+    :func:`_work`, not what it re-reads or recomputes)."""
+    nbytes, flops = _work(B, S, H, KVH, D, dname, True, kernel)
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s"
+
+
 def _k1_times(torch, fa, q, k, v, dname):
     """K1's time at q, k, v (bf16, causal) beside its plain version's,
-    SDPA's and the bound; printed and returned as a kernels-line row."""
+    SDPA's and the bound; printed and returned as a kernels-line row (ms
+    and library_ms per launch in a stream of launches)."""
     import torch.nn.functional as F
     B, S, H, D = q.shape
-    kernel_ms = _median_ms(
+    kvh = k.shape[2]
+    call_ms = _median_ms(
+        torch, lambda: fa._flash_forward_cuda(q, k, v, True), 30)
+    kernel_ms = _median_ms_per_launch(
         torch, lambda: fa._flash_forward_cuda(q, k, v, True), 30)
     plain_ms = _median_ms(
         torch, lambda: fa._flash_forward_reference(q, k, v, True, 512, 512),
         10)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa_ms = _median_ms(
-        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True), 30)
-    bound_ms, bound_by = _bound_ms(B, S, H, k.shape[2], D, dname, True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_call_ms = _median_ms(torch, sdpa, 30)
+    sdpa_ms = _median_ms_per_launch(torch, sdpa, 30)
+    bound_ms, bound_by = _bound_ms(B, S, H, kvh, D, dname, True)
     print(f"K1 at B={B} S={S} H={H} D={D} bf16 causal: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"kernel at {bound_ms / kernel_ms:.2%} of the bound")
+          f"{kernel_ms:.4f} ms per launch ({call_ms:.4f} per call), plain "
+          f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms per launch "
+          f"({sdpa_call_ms:.4f} per call), bound {bound_ms:.4f} ms "
+          f"({bound_by}); kernel at {bound_ms / kernel_ms:.2%} of the bound, "
+          f"{_rates(B, S, H, kvh, D, dname, 'fwd', kernel_ms)}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": sdpa_ms}
 
@@ -350,12 +425,12 @@ def phase_backward_check(torch):
     blk = 512  # the plain version's tiles: GPTConfig's attn_blk_q/k
     (q, k, v, g, out, lse, delta), errs, dname = _check_backward(
         torch, fa, B, S, H, H, D, torch.bfloat16, True, blk, 4)
-    dq_ms = _median_ms(
-        torch, lambda: fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True),
-        30)
-    dkv_ms = _median_ms(
-        torch, lambda: fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True),
-        30)
+    dq = lambda: fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
+    dkv = lambda: fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
+    call_ms = {"dq": _median_ms(torch, dq, 30), "dkv": _median_ms(torch, dkv,
+                                                                   30)}
+    dq_ms = _median_ms_per_launch(torch, dq, 30)
+    dkv_ms = _median_ms_per_launch(torch, dkv, 30)
     dq_plain = _median_ms(torch, lambda: fa._flash_bwd_dq_reference(
         q, k, v, g, lse, delta, True, blk, blk), 5)
     dkv_plain = _median_ms(torch, lambda: fa._flash_bwd_dkv_reference(
@@ -365,21 +440,26 @@ def phase_backward_check(torch):
                   for x in (q, k, v))
     ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     gt = g.transpose(1, 2).contiguous()
-    sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
-        ref_out, (qt, kt, vt), gt, retain_graph=True), 30)
+    sdpa_bwd = lambda: torch.autograd.grad(ref_out, (qt, kt, vt), gt,
+                                           retain_graph=True)
+    sdpa_bwd_call_ms = _median_ms(torch, sdpa_bwd, 30)
+    sdpa_bwd_ms = _median_ms_per_launch(torch, sdpa_bwd, 30)
     rows = {}
     for name, kernel, ms, plain, err in (
             ("K2", "dq", dq_ms, dq_plain, errs["dq"]),
             ("K3", "dkv", dkv_ms, dkv_plain, max(errs["dk"], errs["dv"]))):
         bound_ms, bound_by = _bound_ms(B, S, H, H, D, dname, True, kernel)
         print(f"{name} at B={B} S={S} H={H} D={D} bf16 causal: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); kernel at {bound_ms / ms:.2%} of the bound")
+              f"{ms:.4f} ms per launch ({call_ms[kernel]:.4f} per call), "
+              f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"kernel at {bound_ms / ms:.2%} of the bound, "
+              f"{_rates(B, S, H, H, D, dname, kernel, ms)}")
         rows[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": sdpa_bwd_ms}
-    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_ms:.4f} ms; "
-          f"K2 + K3 {dq_ms + dkv_ms:.4f} ms")
+    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_ms:.4f} ms per "
+          f"launch ({sdpa_bwd_call_ms:.4f} per call); K2 + K3 "
+          f"{dq_ms + dkv_ms:.4f} ms")
     del q, k, v, g, out, lse, delta, qt, kt, vt, ref_out, gt
     torch.cuda.empty_cache()
     return rows["dq"], rows["dkv"]

@@ -22,7 +22,7 @@ from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = (_CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")
-_HEADERS = (_CSRC / "flash_common.cuh",)
+_HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

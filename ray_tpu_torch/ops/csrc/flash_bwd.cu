@@ -27,16 +27,17 @@
 //   Thread t owns 2 rows (t / 8) and, of each 32-wide tile, the 4 columns
 //   t % 8 + 8j; the p/ds tile goes through shared memory to the products
 //   that contract over it.
-// - *_mma_kernel (bf16 inputs): tensor cores through mma.sync.m16n8k16
-//   (bf16 x bf16 -> fp32), 64-row tiles, warp w owning rows 16w..16w+15.
-//   s and dp are exact fp32 sums of bf16 products; p and ds are rounded to
-//   bf16 only as the operands of the products that contract over them
-//   (the rounding the fp32 reference does not make). The operands that a
-//   product reads along the tile's rows (k in K2; q and dO in K3) are also
-//   stored transposed, so each fragment is one 32-bit shared load. The
-//   output columns are split over gridDim.z in slices of at most 128
-//   (D=256 runs two blocks per tile, each recomputing s and dp), which
-//   keeps the fp32 accumulators at <= 64 (K2) or 128 (K3) registers.
+// - bf16 inputs: K2 on tensor cores through mma.sync.m16n8k16 (bf16 x bf16
+//   -> fp32, flash_bwd_dq_mma_kernel), 64-row tiles, warp w owning rows
+//   16w..16w+15, k staged transposed through 16-bit shared stores so each
+//   fragment is one 32-bit shared load; K3 on wgmma fed by TMA
+//   (flash_bwd_dkv_wgmma_kernel, its design in the note above it). In
+//   both, s and dp are exact fp32 sums of bf16 products; p and ds are
+//   rounded to bf16 only as the operands of the products that contract
+//   over them (the rounding the fp32 reference does not make). The output
+//   columns are split over gridDim.z in slices of at most 128 (D=256 runs
+//   two blocks per tile, each recomputing s and dp), which keeps the fp32
+//   accumulators at <= 64 (K2) or 128 (K3) registers.
 //
 // Bound on an H100 SXM at the training shape B=12, H=16, S=1024, D=128,
 // bf16, causal (524,800 unmasked pairs per head, 192 heads): K2 does 3
@@ -45,18 +46,23 @@
 // p^T dO, ds^T q) = 8 D flops per pair, 103 GFLOP, ~104 us. Their bytes
 // (q, k, v, dO, lse, delta and one output tensor or two: 253 MB and 303
 // MB) take ~76 us and ~91 us at 3.35 TB/s, so the operations bound both.
-// This first design is far from it for the reasons K1's note gives
-// (mma.sync, synchronous tile loads, transposes through 16-bit shared
-// stores), and K3 re-stages every query tile for each key tile.
+// K2 is far from it for the reasons K1's first design was (mma.sync,
+// synchronous tile loads, a transpose through 16-bit shared stores). K3's
+// wgmma design runs its four products on wgmma and overlaps the loads
+// with them; what it does not yet do is overlap one warpgroup's
+// elementwise work with its own next products, nor keep its blocks
+// resident from one key tile to the next, as K1 does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using flash::kLog2e;
 using flash::mma_bf16;
 using flash::mma_pitch;
 using flash::pack_bf16;
@@ -374,17 +380,8 @@ constexpr size_t dq_mma_smem_bytes() {
                                   (size_t)out_cols<D>() * kTPitch);
 }
 
-// K3: sK, sV, sQ, sG row-major, q^T and dO^T for the block's columns, and
-// the query tile's lse and delta.
-template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * (size_t)kTile * mma_pitch<D>() +
-                                  2 * (size_t)out_cols<D>() * kTPitch) +
-         2 * kTile * sizeof(float);
-}
-
-// Copy rows [r0, r0 + 64) of one head of a bf16 tensor (src: row 0 of that
-// head as 32-bit words, pitch between positions in words) into a
+// K2: copy rows [r0, r0 + 64) of one head of a bf16 tensor (src: row 0 of
+// that head as 32-bit words, pitch between positions in words) into a
 // row-major tile dst (pitch mma_pitch<D>() elements) and, when dst_t is
 // given, the columns [c_lo, c_lo + out_cols<D>()) transposed into dst_t
 // (kTPitch elements per column).
@@ -572,107 +569,235 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 qpos[0], acc, scale);
 }
 
+// K3 for bf16: wgmma fed by TMA (hopper.cuh). One block per (b, KV head,
+// 128 key rows; 64 at D=256): two consumer warpgroups of 64 keys (one at
+// D=256) and one producer warpgroup, of which one thread issues the TMA
+// loads. K and V are loaded once; q and dO tiles of 64 query rows, with
+// their lse and delta, stream over the H / KVH
+// query heads of the KV head and, for each, over the query tiles from the
+// diagonal (causal) or from 0, through a ring of up to 4 stages (2 at
+// D=256). Transposed scores, so no operand is ever
+// transposed by hand: s^T = K q^T and dp^T = V dO^T are wgmmas with both
+// operands in shared memory, K-major over the head dim; p^T and ds^T are
+// computed on their fp32 fragments in registers and rounded to bf16 there,
+// where they are the A operand of dV += p^T dO and dK += ds^T q, whose B
+// (dO, q) is read MN-major through the transpose bit. dk and dv sum in
+// fp32 registers over every query head and tile and are written once,
+// through shared memory and a TMA store: no atomics, deterministic.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int H, int KVH,
-                         int causal, float scale) {
-  constexpr int kPw = mma_pitch<D>() / 2;
-  constexpr int kPairs = D / 2;
-  constexpr int kOut = out_cols<D>() / 8;
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+struct DkvTiles {
+  static constexpr int kDp = hopper::pad64(D);    // head dim in shared memory
+  static constexpr int kWG = D > 128 ? 1 : 2;     // consumer warpgroups
+  static constexpr int kNK = 64 * kWG;            // key rows per block
+  // Output columns per block: the fp32 dk and dv of 128 columns take 128
+  // registers a thread, so D=256 splits them over gridDim.z.
+  static constexpr int kOut = kDp > 128 ? 128 : kDp;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kKVBytes = kNK * kDp * 2;  // K or V
+  static constexpr int kQBytes = 64 * kDp * 2;    // one q or dO tile
+  // q/dO tiles in flight: as many as shared memory holds, up to 4 (2 at
+  // D=256).
+  static constexpr int kFit =
+      (227 * 1024 - 2048 - 2 * kKVBytes) / (2 * kQBytes + 2 * 64 * 4);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes +
+                                  kStages * (2 * kQBytes + 2 * 64 * 4) +
+                                  8 * (1 + 2 * kStages);
+};
 
-  extern __shared__ uint32_t smem_u32[];
-  uint32_t* sK = smem_u32;
-  uint32_t* sV = sK + kTile * kPw;
-  uint32_t* sQ = sV + kTile * kPw;
-  uint32_t* sG = sQ + kTile * kPw;
-  __nv_bfloat16* sQt = reinterpret_cast<__nv_bfloat16*>(sG + kTile * kPw);
-  __nv_bfloat16* sGt = sQt + out_cols<D>() * kTPitch;
-  float* sL = reinterpret_cast<float*>(sGt + out_cols<D>() * kTPitch);
-  float* sDl = sL + kTile;
+template <int D>
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap g_map,
+                           const __grid_constant__ CUtensorMap dk_map,
+                           const __grid_constant__ CUtensorMap dv_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, int S, int H,
+                           int KVH, int causal, float scale) {
+  using T = DkvTiles<D>;
+  constexpr int kDp = T::kDp, kNK = T::kNK, kOut = T::kOut;
+  constexpr int kStages = T::kStages;
 
-  const int bkv = blockIdx.x;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = hopper::align_1024(smem_raw);
+  uint8_t* sV = sK + T::kKVBytes;
+  uint8_t* sQ = sV + T::kKVBytes;             // kStages q tiles
+  uint8_t* sG = sQ + kStages * T::kQBytes;    // kStages dO tiles
+  float* sL = reinterpret_cast<float*>(sG + kStages * T::kQBytes);
+  float* sDl = sL + kStages * 64;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDl + kStages * 64);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  // The key tiles of one KV head are neighbours in the grid (x), the
+  // first key tiles, which see most queries, first.
+  const int bkv = blockIdx.y;
   const int b = bkv / KVH;
   const int kvh = bkv - b * KVH;
   const int rep = H / KVH;
-  const int k0 = blockIdx.y * kTile;  // the first key tiles see most queries
-  const int c_lo = blockIdx.z * out_cols<D>();
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int gr = (tid % 32) / 4;
-  const int tg = tid % 4;
+  const int k0 = blockIdx.x * kNK;
+  const int c_lo = blockIdx.z * kOut;
+  const int first = causal ? k0 / 64 : 0;
+  const int per_head = S / 64 - first;
+  const int n_iter = rep * per_head;
 
-  const size_t q_pitch = (size_t)H * kPairs;
-  const size_t kv_pitch = (size_t)KVH * kPairs;
-  const size_t kv_off = ((size_t)b * S * KVH + kvh) * kPairs;
-  stage_bf16<D>(reinterpret_cast<const uint32_t*>(k) + kv_off, kv_pitch, k0,
-                sK, nullptr, 0);
-  stage_bf16<D>(reinterpret_cast<const uint32_t*>(v) + kv_off, kv_pitch, k0,
-                sV, nullptr, 0);
-
-  const int r_lo = warp * 16 + gr;  // this thread's key rows r_lo, r_lo + 8
-  const int kpos[2] = {k0 + r_lo, k0 + r_lo + 8};
-  float acc_k[kOut][4], acc_v[kOut][4];
-#pragma unroll
-  for (int j = 0; j < kOut; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  const int first_tile = causal ? k0 / kTile : 0;
-  for (int r = 0; r < rep; ++r) {
-    const int h = kvh * rep + r;
-    const size_t bh = (size_t)b * H + h;
-    const size_t q_off = ((size_t)b * S * H + h) * kPairs;
-    for (int qt = first_tile; qt < S / kTile; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's sQ, sG, sQt, sGt, sL are read
-      stage_bf16<D>(reinterpret_cast<const uint32_t*>(q) + q_off, q_pitch, q0,
-                    sQ, sQt, c_lo);
-      stage_bf16<D>(reinterpret_cast<const uint32_t*>(g) + q_off, q_pitch, q0,
-                    sG, sGt, c_lo);
-      if (tid < kTile) {
-        sL[tid] = lse[bh * S + q0 + tid];
-        sDl[tid] = delta[bh * S + q0 + tid];
-      }
-      __syncthreads();
-
-      // Transposed scores: s[n] holds queries 8n + 2tg + {0, 1} of key row
-      // r_lo in [0..1], of key row r_lo + 8 in [2..3]; likewise dp.
-      float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      product_nt<D>(sK, r_lo, sQ, s);
-      product_nt<D>(sV, r_lo, sG, dp);
-
-      // p in place of s, ds in place of dp.
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * tg + e % 2;
-          const bool masked = causal && q0 + c < kpos[e / 2];
-          const float p = masked ? 0.f : expf(s[n][e] * scale - sL[c]);
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - sDl[c]);
-        }
-      product_xt<D>(s, reinterpret_cast<const uint32_t*>(sGt), acc_v);
-      product_xt<D>(dp, reinterpret_cast<const uint32_t*>(sQt), acc_k);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], T::kWG);
     }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = hopper::warpgroup_index();
+  if (wg == 0) {
+    // Producer: one thread keeps the TMA loads in flight.
+    if constexpr (T::kWG == 2) hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * T::kKVBytes);
+      hopper::tma_load_tile<kDp>(sK, kNK, &k_map, kvh, k0, b, kv_full);
+      hopper::tma_load_tile<kDp>(sV, kNK, &v_map, kvh, k0, b, kv_full);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        const int h = kvh * rep + it / per_head;
+        const int q0 = (first + it % per_head) * 64;
+        const size_t row = ((size_t)b * H + h) * S + q0;  // of lse, delta
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * T::kQBytes + 2 * 64 * 4);
+        hopper::tma_load_tile<kDp>(sQ + s * T::kQBytes, 64, &q_map, h, q0, b,
+                                   &full[s]);
+        hopper::tma_load_tile<kDp>(sG + s * T::kQBytes, 64, &g_map, h, q0, b,
+                                   &full[s]);
+        hopper::bulk_load(sL + s * 64, lse + row, 64 * 4, &full[s]);
+        hopper::bulk_load(sDl + s * 64, delta + row, 64 * 4, &full[s]);
+      }
+    }
+    return;
   }
 
-  uint32_t* dk32 = reinterpret_cast<uint32_t*>(dk) + kv_off + c_lo / 2;
-  uint32_t* dv32 = reinterpret_cast<uint32_t*>(dv) + kv_off + c_lo / 2;
-  store_rows<D>(dk32, kv_pitch, kpos[0], acc_k, scale);
-  store_rows<D>(dv32, kv_pitch, kpos[0], acc_v, 1.f);
+  // Consumers: warpgroup c owns key rows key_wg .. key_wg + 63.
+  if constexpr (T::kWG == 2) hopper::setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int tq = lane % 4;
+  const int r_lo = 16 * (tid / 32) + lane / 4;  // key rows r_lo, r_lo + 8
+  const int key_wg = k0 + 64 * c;
+  const int kpos[2] = {key_wg + r_lo, key_wg + r_lo + 8};
+  const float sl2 = scale * kLog2e;
+  float dk[kOut / 2], dv[kOut / 2];
+#pragma unroll
+  for (int i = 0; i < kOut / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const int q0 = (first + it % per_head) * 64;
+    const uint8_t* tQ = sQ + s * T::kQBytes;
+    const uint8_t* tG = sG + s * T::kQBytes;
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    if (causal && q0 + 63 < key_wg) {  // every query before every key here
+      hopper::release(&empty[s]);
+      continue;
+    }
+    // s^T = K q^T and dp^T = V dO^T: rows are this warpgroup's keys,
+    // columns the tile's 64 queries.
+    float st[32], dpt[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDp / 16; ++kk)
+      hopper::wgmma_ss(st, hopper::desc_k_major(sK, kNK, 64 * c, kk),
+                       hopper::desc_k_major(tQ, 64, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kDp / 16; ++kk)
+      hopper::wgmma_ss(dpt, hopper::desc_k_major(sV, kNK, 64 * c, kk),
+                       hopper::desc_k_major(tG, 64, 0, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // p^T = exp(s^T scale - lse[query]), zeroed where the query precedes
+    // the key (causal); ds^T = p^T (dp^T - delta[query]).
+    const bool mask = causal && q0 < key_wg + 63;
+    const float* tL = sL + s * 64;
+    const float* tDl = sDl + s * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tq + e;
+        const float lse2 = tL[col] * kLog2e;
+        const float dl = tDl[col];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half + e;
+          float p = hopper::ex2(fmaf(st[i], sl2, -lse2));
+          if (mask && q0 + col < kpos[half]) p = 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - dl);
+        }
+      }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+        da[kk][i] = pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+      }
+
+    // dV += p^T dO and dK += ds^T q over the tile's queries, for this
+    // block's output columns c_lo .. c_lo + kOut.
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs(dv, pa[kk], hopper::desc_mn_major(tG, 64, c_lo / 64, kk),
+                       1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs(dk, da[kk], hopper::desc_mn_major(tQ, 64, c_lo / 64, kk),
+                       1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::release(&empty[s]);
+  }
+
+  // dk * scale and dv in bf16, through this warpgroup's rows of the K and
+  // V tiles (their last reader was the wait above), then TMA stores: rows
+  // past S and columns past D are not written.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 64 * c + r_lo + 8 * half;
+#pragma unroll
+    for (int j = 0; j < kOut / 8; ++j) {
+      const int i = 4 * j + 2 * half;
+      hopper::st_swizzled(sK, kNK, r, 8 * j + 2 * tq,
+                          pack_bf16(dk[i] * scale, dk[i + 1] * scale));
+      hopper::st_swizzled(sV, kNK, r, 8 * j + 2 * tq,
+                          pack_bf16(dv[i], dv[i + 1]));
+    }
+  }
+  hopper::fence_async_shared();
+  hopper::warpgroup_sync(1 + c);
+  if (tid == 0) {
+#pragma unroll
+    for (int bx = 0; bx < kOut / 64; ++bx)
+      if (c_lo + bx * 64 < D) {
+        const int off = (bx * kNK + 64 * c) * hopper::kRowBytes;
+        hopper::tma_store(&dk_map, sK + off, c_lo + bx * 64, kvh, key_wg, b);
+        hopper::tma_store(&dv_map, sV + off, c_lo + bx * 64, kvh, key_wg, b);
+      }
+    hopper::tma_store_wait();
+  }
 }
 
 // -- launch --------------------------------------------------------------------
@@ -738,18 +863,26 @@ cudaError_t launch_dkv(int dtype, const Args& a) {
         delta, static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.S,
         a.H, a.KVH, a.causal, a.scale);
   } else {
-    constexpr size_t smem = dkv_mma_smem_bytes<D>();
-    if ((err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem)) != cudaSuccess)
+    using T = DkvTiles<D>;
+    CUtensorMap q_map, k_map, v_map, g_map, dk_map, dv_map;
+    if ((err = hopper::make_map(&q_map, a.q, a.B, a.S, a.H, D)) != cudaSuccess ||
+        (err = hopper::make_map(&k_map, a.k, a.B, a.S, a.KVH, D)) != cudaSuccess ||
+        (err = hopper::make_map(&v_map, a.v, a.B, a.S, a.KVH, D)) != cudaSuccess ||
+        (err = hopper::make_map(&g_map, a.g, a.B, a.S, a.H, D)) != cudaSuccess ||
+        (err = hopper::make_map(&dk_map, a.out0, a.B, a.S, a.KVH, D)) !=
+            cudaSuccess ||
+        (err = hopper::make_map(&dv_map, a.out1, a.B, a.S, a.KVH, D)) !=
+            cudaSuccess)
       return err;
-    const dim3 grid(a.B * a.KVH, a.S / kTile, D / out_cols<D>());
-    flash_bwd_dkv_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.g), lse, delta,
-        static_cast<__nv_bfloat16*>(a.out0),
-        static_cast<__nv_bfloat16*>(a.out1), a.S, a.H, a.KVH, a.causal,
-        a.scale);
+    if ((err = hopper::prepare_launch<flash_bwd_dkv_wgmma_kernel<D>>(
+             T::kSmem)) != cudaSuccess)
+      return err;
+    if (a.B * a.KVH > 65535) return cudaErrorInvalidValue;  // gridDim.y
+    const dim3 grid((a.S + T::kNK - 1) / T::kNK, a.B * a.KVH,
+                    T::kDp / T::kOut);
+    flash_bwd_dkv_wgmma_kernel<D><<<grid, T::kThreads, T::kSmem, a.stream>>>(
+        q_map, k_map, v_map, g_map, dk_map, dv_map, lse, delta, a.S, a.H,
+        a.KVH, a.causal, a.scale);
   }
   return cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Pieces shared by the flash attention kernels (flash_fwd.cu: K1,
-// flash_bwd.cu: K2 and K3): the bf16 tensor-core product, bf16 packing and
-// the shared-memory row pitch of the bf16 tiles.
+// flash_bwd.cu: K2 and K3): the mask fill, bf16 packing, and K2's mma.sync
+// product and shared-memory row pitch of its bf16 tiles.
 
 #pragma once
 
@@ -11,6 +11,7 @@
 namespace flash {
 
 constexpr float kNegInf = -1e30f;  // the JAX package's mask fill
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half

@@ -33,7 +33,9 @@ from ray_tpu_torch.ops.blockwise_attention import blockwise_attention
 _NEG_INF = -1e30
 # Head dims the kernel is instantiated for: every GPT preset and test size.
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-_KERNEL_ROWS = 64  # the kernel's Q and KV tile height; S must be a multiple
+# S must be a multiple of this: the fp32 kernels' tile height; the bf16
+# kernels' 128-row blocks read rows past S as zeros and drop their output.
+_KERNEL_ROWS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches of this process; each wrapper adds one per launch of
@@ -143,6 +145,15 @@ def _check_cuda_inputs(q, k, v, *more):
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
 
 
+def _call(fn, device, *args) -> int:
+    """Call a C entry with ``args`` and ``device``'s current stream,
+    switching the current device only when ``device`` is not it."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def _raise_on(err: int, kernel: str) -> None:
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed: "
@@ -150,8 +161,8 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def _flash_forward_cuda(q, k, v, causal: bool):
-    """Launch K1's CUDA kernel (fp32: FMA; bf16: tensor cores). Tile sizes
-    are the kernel's own (64 rows), so the result differs from the plain
+    """Launch K1's CUDA kernel (fp32: FMA; bf16: wgmma fed by TMA). Tile
+    sizes are the kernel's own, so the result differs from the plain
     version in summation order and, for bf16, in the bf16 rounding of the
     probabilities that multiply v."""
     global launches
@@ -160,13 +171,10 @@ def _flash_forward_cuda(q, k, v, causal: bool):
     kvh = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B * H, 1, S), dtype=torch.float32, device=q.device)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ray_tpu_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, kvh, D, _DTYPE_CODES[q.dtype],
-            int(causal), ctypes.c_float(1.0 / math.sqrt(D)), stream)
+    err = _call(_build.load().ray_tpu_flash_fwd, q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, S, H, kvh, D, _DTYPE_CODES[q.dtype],
+                int(causal), ctypes.c_float(1.0 / math.sqrt(D)))
     _raise_on(err, "flash_fwd")
     launches += 1
     return out, lse
@@ -291,13 +299,11 @@ def _bwd_launch(kernel: str, q, k, v, g, lse, delta, causal: bool,
     """Launch K2 (``dq``) or K3 (``dkv``) into ``outputs``."""
     B, S, H, D = q.shape
     fn = getattr(_build.load(), f"ray_tpu_flash_bwd_{kernel}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 *(x.data_ptr() for x in outputs), B, S, H, k.shape[2], D,
-                 _DTYPE_CODES[q.dtype], int(causal),
-                 ctypes.c_float(1.0 / math.sqrt(D)), stream)
+    err = _call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *(x.data_ptr() for x in outputs), B, S, H, k.shape[2], D,
+                _DTYPE_CODES[q.dtype], int(causal),
+                ctypes.c_float(1.0 / math.sqrt(D)))
     _raise_on(err, f"flash_bwd_{kernel}")
 
 
@@ -312,7 +318,8 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool):
 
 
 def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool):
-    """Launch K3 (fp32: FMA; bf16: tensor cores) → (dk, dv) in k's dtype."""
+    """Launch K3 (fp32: FMA; bf16: wgmma fed by TMA) → (dk, dv) in k's
+    dtype."""
     global dkv_launches
     _check_cuda_inputs(q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -231,3 +231,87 @@ def test_selective_remat_launches_k1_once_per_layer(cuda):
     for name, g in full.items():
         torch.testing.assert_close(sel[name], g, atol=1e-6, rtol=1e-5,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_large_logits(cuda, causal):
+    """q times 8 (exact in bf16): logits of standard deviation 8, so the
+    running max of most rows rises from key tile to key tile and the
+    online rescale of o and l runs across tiles."""
+    q, k, v = _qkv(2, 1024, 8, 8, 128, torch.bfloat16, seed=11, device=cuda)
+    q = q * 8
+    out, lse = fa._flash_forward(q, k, v, causal, 512, 512)
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, causal, 512,
+                                                   512)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_with_16_query_heads_over_2_kv_heads(cuda, causal):
+    """GQA 16 over 2 at D=128: K1 reads KV head h / 8 through its tensor
+    maps, K3 sums 8 query heads into each dk/dv tile."""
+    q, k, v = _qkv(2, 512, 16, 2, 128, torch.bfloat16, seed=12, device=cuda)
+    out, lse = fa._flash_forward(q, k, v, causal, 256, 256)
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, causal, 256,
+                                                   256)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+    _check_backward(q, k, v, causal, 256, 256, seed=13)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_kernels_past_the_end_of_the_sequence(cuda, D, causal):
+    """S = 192 = 64 x 3: the last 128-row block of the bf16 kernels reaches
+    64 rows past S. Their 4-D tensor maps read zeros there (masked as keys
+    in K1), and the stores drop those rows."""
+    q, k, v = _qkv(2, 192, 4, 2, D, torch.bfloat16, seed=D + 14, device=cuda)
+    g = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        tuple(q.shape), dtype=np.float32)).to(cuda, torch.bfloat16)
+    out, lse = fa._flash_forward_cuda(q, k, v, causal)
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, causal, 64, 64)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+    grads = fa._flash_backward_cuda(q, k, v, out, lse, g, causal)
+    ref = fa._flash_backward_reference(q, k, v, out, lse, g, causal, 64, 64)
+    atol, rtol = BWD_TOL[torch.bfloat16]
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_bwd_dkv_is_deterministic(cuda):
+    """K3 sums over the query heads and tiles in registers and writes each
+    dk/dv tile once, with no atomics: two runs agree bit for bit."""
+    q, k, v = _qkv(2, 512, 8, 2, 128, torch.bfloat16, seed=15, device=cuda)
+    g = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        tuple(q.shape), dtype=np.float32)).to(cuda, torch.bfloat16)
+    out, lse = fa._flash_forward_cuda(q, k, v, True)
+    delta = fa._delta(out, g)
+    dk0, dv0 = fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
+    dk1, dv1 = fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
+    assert torch.equal(dk0, dk1) and torch.equal(dv0, dv1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_each_wrapper_launches_its_kernel_once(cuda, dtype):
+    q, k, v = _qkv(1, 256, 4, 2, 64, dtype, seed=17, device=cuda)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out, lse = fa._flash_forward_cuda(q, k, v, True)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        before[0] + 1, before[1], before[2])
+    delta = fa._delta(out, q)
+    fa._flash_bwd_dq_cuda(q, k, v, q, lse, delta, True)
+    assert (fa.dq_launches, fa.dkv_launches) == (before[1] + 1, before[2])
+    fa._flash_bwd_dkv_cuda(q, k, v, q, lse, delta, True)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
