@@ -38,7 +38,13 @@ printed:
    (its out and lse are kept), a profile of one step, and gpt-micro's
    first gradients and train step on the card against the CPU (3 steps,
    accumulation 1 and 2).
-6. One JSON line of kernels; the last line is the result.
+6. One JSON line of kernels (ms and library_ms per call, launch_ms and
+   library_launch_ms per launch); the last line is the result.
+
+``python3 chip_smoke.py --kernel-times ROOT`` runs phase 3 alone for the
+``ray_tpu_torch`` of the checkout at ROOT (its kernels build under
+ROOT/build/), so that two trees' kernels are timed by one method in one
+call; it prints no result line.
 """
 
 from __future__ import annotations
@@ -149,16 +155,17 @@ KERNEL_NAME = re.compile(r"(flash_[a-z_]+_kernel)ILi(\d+)E")
 
 # -- 1. environment ---------------------------------------------------------
 
-def phase_environment():
+def phase_environment(root=HERE):
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
+    sys.path.insert(0, str(root))
     try:
         import ray_tpu_torch
     except ImportError as exc:
-        fail(f"cannot import ray_tpu_torch from {HERE}: {exc}")
+        fail(f"cannot import ray_tpu_torch from {root}: {exc}")
     pkg = pathlib.Path(ray_tpu_torch.__file__).resolve().parent
-    check(pkg == HERE / "ray_tpu_torch",
-          f"ray_tpu_torch resolves to {pkg}, not this checkout's")
+    check(pkg == root / "ray_tpu_torch",
+          f"ray_tpu_torch resolves to {pkg}, not {root}'s")
     # The product of a float32 matmul on the card is full fp32 here.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -329,8 +336,10 @@ def _rates(B, S, H, KVH, D, dname, kernel, ms):
 
 def _k1_times(torch, fa, q, k, v, dname):
     """K1's time at q, k, v (bf16, causal) beside its plain version's,
-    SDPA's and the bound; printed and returned as a kernels-line row (ms
-    and library_ms per launch in a stream of launches)."""
+    SDPA's and the bound; printed and returned as a kernels-line row: ms
+    and library_ms per call (each synchronised on its own, host time
+    included), launch_ms and library_launch_ms per launch in a stream of
+    launches."""
     import torch.nn.functional as F
     B, S, H, D = q.shape
     kvh = k.shape[2]
@@ -347,13 +356,15 @@ def _k1_times(torch, fa, q, k, v, dname):
     sdpa_ms = _median_ms_per_launch(torch, sdpa, 30)
     bound_ms, bound_by = _bound_ms(B, S, H, kvh, D, dname, True)
     print(f"K1 at B={B} S={S} H={H} D={D} bf16 causal: kernel "
-          f"{kernel_ms:.4f} ms per launch ({call_ms:.4f} per call), plain "
-          f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms per launch "
-          f"({sdpa_call_ms:.4f} per call), bound {bound_ms:.4f} ms "
-          f"({bound_by}); kernel at {bound_ms / kernel_ms:.2%} of the bound, "
+          f"{call_ms:.4f} ms per call ({kernel_ms:.4f} per launch), plain "
+          f"{plain_ms:.4f} ms, sdpa {sdpa_call_ms:.4f} ms per call "
+          f"({sdpa_ms:.4f} per launch), bound {bound_ms:.4f} ms "
+          f"({bound_by}); kernel at {bound_ms / call_ms:.2%} of the bound "
+          f"per call ({bound_ms / kernel_ms:.2%} per launch), per launch "
           f"{_rates(B, S, H, kvh, D, dname, 'fwd', kernel_ms)}")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": sdpa_ms}
+    return {"ms": call_ms, "launch_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_call_ms, "library_launch_ms": sdpa_ms}
 
 
 def phase_kernel_check(torch):
@@ -449,17 +460,21 @@ def phase_backward_check(torch):
             ("K2", "dq", dq_ms, dq_plain, errs["dq"]),
             ("K3", "dkv", dkv_ms, dkv_plain, max(errs["dk"], errs["dv"]))):
         bound_ms, bound_by = _bound_ms(B, S, H, H, D, dname, True, kernel)
+        per_call = call_ms[kernel]
         print(f"{name} at B={B} S={S} H={H} D={D} bf16 causal: kernel "
-              f"{ms:.4f} ms per launch ({call_ms[kernel]:.4f} per call), "
-              f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"kernel at {bound_ms / ms:.2%} of the bound, "
+              f"{per_call:.4f} ms per call ({ms:.4f} per launch), plain "
+              f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel "
+              f"at {bound_ms / per_call:.2%} of the bound per call "
+              f"({bound_ms / ms:.2%} per launch), per launch "
               f"{_rates(B, S, H, H, D, dname, kernel, ms)}")
-        rows[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": sdpa_bwd_ms}
-    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_ms:.4f} ms per "
-          f"launch ({sdpa_bwd_call_ms:.4f} per call); K2 + K3 "
-          f"{dq_ms + dkv_ms:.4f} ms")
+        rows[kernel] = {"max_abs_err": err, "ms": per_call, "launch_ms": ms,
+                        "plain_ms": plain, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": sdpa_bwd_call_ms,
+                        "library_launch_ms": sdpa_bwd_ms}
+    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_call_ms:.4f} ms "
+          f"per call ({sdpa_bwd_ms:.4f} per launch); K2 + K3 "
+          f"{call_ms['dq'] + call_ms['dkv']:.4f} ms per call "
+          f"({dq_ms + dkv_ms:.4f} per launch)")
     del q, k, v, g, out, lse, delta, qt, kt, vt, ref_out, gt
     torch.cuda.empty_cache()
     return rows["dq"], rows["dkv"]
@@ -852,7 +867,22 @@ def phase_small_training(torch):
               f"accumulation {accum}")
 
 
+def kernel_times(root):
+    """Phase 3 alone (K1-K3 checked and timed) for the ray_tpu_torch of
+    another checkout under ``root``, for example a parent commit unpacked
+    under build/, with this script's inputs and timers: two trees are timed
+    alike in one call. Prints the kernel rows and no result line."""
+    torch, _ = phase_environment(pathlib.Path(root).resolve())
+    k1 = phase_kernel_check(torch)
+    k2, k3 = phase_backward_check(torch)
+    print(json.dumps({"kernel_times": {"flash_fwd": k1, "flash_bwd_dq": k2,
+                                       "flash_bwd_dkv": k3}}))
+
+
 def main():
+    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
+        return kernel_times(sys.argv[2])
+    check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernel-times ROOT]")
     torch, name = phase_environment()
     phase_build()
     k1 = phase_kernel_check(torch)
