@@ -12,7 +12,8 @@ printed:
 2. Build: the port's CUDA kernels from this checkout's sources; ptxas's
    registers and spills of every kernel, and the count of wgmma
    (``HGMMA``) and TMA load (``UTMALDG``) instructions in the SASS of the
-   bf16 kernels of K1 and K3, which must use both.
+   bf16 kernels of K1, K2 and K3, which must use both, and which ptxas
+   must neither spill nor serialize.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
    version on the card, at an fp32 GQA shape, the serving shape and the
    training shape; then K2 and K3 (the backward: dq, and dk/dv) against
@@ -35,7 +36,8 @@ printed:
    the first update must leave every parameter as it was, and each step
    must launch K1 48 times (forward and remat) and K2 and K3 24 times.
    Then steps under selective remat, which must launch K1 only 24 times
-   (its out and lse are kept), a profile of one step, and gpt-micro's
+   (its out and lse are kept), a profile of one step, which must show
+   the three wgmma kernels by name, and gpt-micro's
    first gradients and train step on the card against the CPU (3 steps,
    accumulation 1 and 2).
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
@@ -147,9 +149,12 @@ def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60)
 
 
-# The bf16 kernels built on wgmma fed by TMA (K1 and K3): their SASS must
-# hold both kinds of instruction.
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+# The bf16 kernels built on wgmma fed by TMA (K1, K2 and K3): their SASS
+# must hold both kinds of instruction, and ptxas must not spill them nor
+# serialize their wgmma. tests/test_torch_build.py checks that every
+# *_wgmma_kernel under ray_tpu_torch/ops/csrc/ is named here.
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel")
 KERNEL_NAME = re.compile(r"(flash_[a-z_]+_kernel)ILi(\d+)E")
 
 
@@ -194,21 +199,29 @@ def phase_build():
     _build.load()
     print(f"build: {path.relative_to(HERE)} in {seconds:.2f} s")
     # ptxas's report (-Xptxas -v): registers and spills of each kernel,
-    # and any product it had to serialize.
+    # and any product it had to serialize (C7514, C7520). Neither may touch a
+    # wgmma kernel.
     log = path.with_suffix(".log")
-    if log.exists():
-        kernel, spill = "?", ""
-        for line in log.read_text().splitlines():
-            if "Compiling entry" in line:
-                m = KERNEL_NAME.search(line)
-                kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
-            elif "spill" in line:
-                spill = line.strip()
-            elif "Used" in line:
-                regs = line.split("Used")[1].split(",")[0].strip()
-                print(f"  ptxas: {kernel}: {regs}; {spill}")
-            elif "Performance Loss" in line:
-                print(f"  ptxas: {line.strip()}")
+    check(log.exists(), f"no ptxas report beside {path.name}")
+    kernel, spill, faults = "?", "", []
+    for line in log.read_text().splitlines():
+        if "Compiling entry" in line:
+            m = KERNEL_NAME.search(line)
+            kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
+        elif "spill" in line:
+            spill = line.strip()
+            if (kernel.split("<")[0] in WGMMA_KERNELS
+                    and re.search(r"\b[1-9]\d* bytes spill", line)):
+                faults.append(f"{kernel}: {spill}")
+        elif "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            print(f"  ptxas: {kernel}: {regs}; {spill}")
+        elif "Performance Loss" in line:
+            print(f"  ptxas: {line.strip()}")
+            m = KERNEL_NAME.search(line)
+            if (m.group(1) if m else kernel.split("<")[0]) in WGMMA_KERNELS:
+                faults.append(line.strip())
+    check(not faults, f"ptxas spilled or serialized a wgmma kernel: {faults}")
     _sass_counts(_build, path)
     return seconds
 
@@ -620,10 +633,11 @@ def _profile_step(torch, model, buf):
     _profile(torch, forward, f"one forward of [{NUM_SLOTS}, {SEQ}]", 8)
 
 
-def _profile(torch, fn, what, top):
+def _profile(torch, fn, what, top, expect=()):
     """Run fn once under torch.profiler and print its device time by
-    kernel, the top ``top`` kernels by device time, and the step's time on
-    the host clock."""
+    kernel, the top ``top`` kernels by device time, the port's flash
+    kernels by name, and the step's time on the host clock. Each name in
+    ``expect`` must be among the kernels the profiler saw."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -645,6 +659,12 @@ def _profile(torch, fn, what, top):
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.self_device_time_total / total:6.1%} x{e.count:<4d} "
               f"{e.key[:160]}")
+    for e in events:
+        if "flash_" in e.key:
+            print(f"  flash kernel: {e.self_device_time_total / 1e3:8.3f} "
+                  f"ms x{e.count:<4d} {e.key[:160]}")
+    missing = [n for n in expect if not any(n in e.key for e in events)]
+    check(not missing, f"the profile saw no {missing}")
     classes = {"the port's flash kernels": ("flash_",),
                "GEMMs (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma")}
     rest = total
@@ -797,7 +817,8 @@ def phase_training(torch):
     model.cfg = cfg
 
     _profile(torch, lambda: step(state, batch),
-             f"one training step of {TRAIN_PRESET} (full remat)", 20)
+             f"one training step of {TRAIN_PRESET} (full remat)", 20,
+             expect=WGMMA_KERNELS)
     del state, model, step, sel_step, metrics, batch
     torch.cuda.empty_cache()
     return counts, {"ms_per_step": mean_s * 1e3, "tokens_per_s": tokens_s,

@@ -27,17 +27,21 @@
 //   Thread t owns 2 rows (t / 8) and, of each 32-wide tile, the 4 columns
 //   t % 8 + 8j; the p/ds tile goes through shared memory to the products
 //   that contract over it.
-// - bf16 inputs: K2 on tensor cores through mma.sync.m16n8k16 (bf16 x bf16
-//   -> fp32, flash_bwd_dq_mma_kernel), 64-row tiles, warp w owning rows
-//   16w..16w+15, k staged transposed through 16-bit shared stores so each
-//   fragment is one 32-bit shared load; K3 on wgmma fed by TMA
-//   (flash_bwd_dkv_wgmma_kernel, its design in the note above it). In
-//   both, s and dp are exact fp32 sums of bf16 products; p and ds are
-//   rounded to bf16 only as the operands of the products that contract
-//   over them (the rounding the fp32 reference does not make). The output
-//   columns are split over gridDim.z in slices of at most 128 (D=256 runs
-//   two blocks per tile, each recomputing s and dp), which keeps the fp32
-//   accumulators at <= 64 (K2) or 128 (K3) registers.
+// - *_wgmma_kernel (bf16 inputs): Hopper's wgmma fed by TMA (the machinery
+//   is in hopper.cuh; each kernel's design is in the note above it). A
+//   producer warpgroup streams tiles through mbarrier rings; consumer
+//   warpgroups of 64 rows compute s and dp with both operands in shared
+//   memory and feed p and ds from their fp32 fragments in registers, as
+//   the A operand, to the products that contract over them, whose B is
+//   read MN-major through the transpose bit: no operand is transposed by
+//   hand. s and dp are exact fp32 sums of bf16 products; p and ds are
+//   rounded to bf16 only as those operands (the rounding the fp32
+//   reference does not make), and every sum stays fp32. The output columns
+//   are split in slices of at most 128 (at D=256 each tile is two pieces of
+//   work, each recomputing s and dp), which keeps the fp32 accumulators at
+//   <= 64 (K2) or 128 (K3) registers. Each output tile is written once, by
+//   a TMA store that drops rows past S and columns past D: no atomics, so
+//   both kernels are deterministic.
 //
 // Bound on an H100 SXM at the training shape B=12, H=16, S=1024, D=128,
 // bf16, causal (524,800 unmasked pairs per head, 192 heads): K2 does 3
@@ -46,12 +50,10 @@
 // p^T dO, ds^T q) = 8 D flops per pair, 103 GFLOP, ~104 us. Their bytes
 // (q, k, v, dO, lse, delta and one output tensor or two: 253 MB and 303
 // MB) take ~76 us and ~91 us at 3.35 TB/s, so the operations bound both.
-// K2 is far from it for the reasons K1's first design was (mma.sync,
-// synchronous tile loads, a transpose through 16-bit shared stores). K3's
-// wgmma design runs its four products on wgmma and overlaps the loads
-// with them; what it does not yet do is overlap one warpgroup's
-// elementwise work with its own next products, nor keep its blocks
-// resident from one key tile to the next, as K1 does.
+// Both kernels overlap the loads with the products. K2 also overlaps each
+// warpgroup's elementwise work with its own previous product and keeps its
+// blocks resident from one query tile to the next, as K1 does; K3 does
+// neither yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,8 +65,6 @@
 namespace {
 
 using flash::kLog2e;
-using flash::mma_bf16;
-using flash::mma_pitch;
 using flash::pack_bf16;
 
 constexpr int kThreads = 128;
@@ -360,213 +360,328 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
   }
 }
 
-// -- bf16: tensor-core kernels -------------------------------------------------
+// -- bf16: wgmma kernels --------------------------------------------------------
 
-constexpr int kTile = 64;               // rows of every tile: 4 warps x 16
-constexpr int kTPitch = kTile + 8;      // transposed tiles, bf16 elements
-constexpr int kNTiles = kTile / 8;      // 8-column tiles of a score tile
+constexpr int kKeys = 64;  // keys per K/V tile of K2; S is a multiple of it
 
-static_assert(kThreads == 4 * 32 && kTile == 4 * 16,
-              "4 warps of 16 rows");
-
-// Output columns a block computes: all of D up to 128, else 128-wide slices.
+// K2 for bf16: wgmma fed by TMA (hopper.cuh). A persistent kernel, as K1
+// is: one block per SM, each walking pairs of query tiles (128 rows; 64 at
+// D=256) of one (b, h), the last tile with the first, so that under the
+// causal mask every pair is the same work and a static schedule balances
+// the SMs; the pairs of one head are neighbours, so the blocks at work
+// share a few heads' K and V in L2. A block is two consumer warpgroups of
+// 64 query rows each (one at D=256) and one producer warpgroup, of which
+// one thread issues the TMA loads: Q and dO of a tile into one of two
+// slots (one at D=256), so the next tile's arrive while this one's dq
+// leaves, and K and V tiles of 64 keys of KV head h / (H / KVH) through
+// two rings, from key 0 up to the tile's diagonal (causal) or to S.
+// s = Q K^T and dp = dO V^T are wgmmas with both operands in shared
+// memory, K-major over the head dim; p = exp2(s scale log2 e - lse log2 e)
+// and ds = p (dp - delta) are computed on their fp32 fragments in
+// registers and ds is rounded to bf16 there, where it is the A operand of
+// dQ += ds K, whose B (the same K tile) is read MN-major through the
+// transpose bit: nothing is transposed by hand. Per warpgroup a pipeline
+// of depth one: s and dp of key tile t are issued together with dQ += ds K
+// of tile t - 1, and the elementwise work of tile t runs while the latter
+// is on the tensor cores. (Committing s and dp apart, to compute p while
+// dp runs, made ptxas serialize the wgmma, C7514, and was slower.) V's
+// slot is free once dp is computed, K's once ds K is. dq sums in fp32
+// registers and is written once, through the warpgroup's rows of the Q
+// slot and a TMA store: no atomics, deterministic. setmaxnreg gives the
+// consumers 232 registers and leaves the producer 40.
 template <int D>
-__host__ __device__ constexpr int out_cols() { return D < 128 ? D : 128; }
+struct DqTiles {
+  static constexpr int kDp = hopper::pad64(D);    // head dim in shared memory
+  static constexpr int kWG = D > 128 ? 1 : 2;     // consumer warpgroups
+  static constexpr int kM = 64 * kWG;             // query rows per tile
+  // Output columns per item: D=256 splits them in two items, as K3 splits
+  // them over gridDim.z.
+  static constexpr int kOut = kDp > 128 ? 128 : kDp;
+  static constexpr int kSlices = kDp / kOut;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kQBytes = kM * kDp * 2;      // Q or dO
+  static constexpr int kKVBytes = kKeys * kDp * 2;  // one K or V tile
+  static constexpr int kRoom = 227 * 1024 - 2048;   // less alignment, barriers
+  // Two Q/dO slots, so the next item's Q and dO load while this one's dq
+  // leaves through the other, where they fit beside 2 K/V stages (not at
+  // D=256); then as many K/V stages as fit, up to 4 (3 at D=128, 2 at
+  // D=256).
+  static constexpr int kQSlots =
+      4 * kQBytes + 4 * kKVBytes <= kRoom ? 2 : 1;
+  static constexpr int kFit = (kRoom - 2 * kQSlots * kQBytes) / (2 * kKVBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmem = 1024 + 2 * kQSlots * kQBytes +
+                                  2 * kStages * kKVBytes +
+                                  8 * (2 * kQSlots + 4 * kStages);
+};
 
-// K2: sQ, sG, sK, sV row-major [64, D], and k^T for the block's columns.
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * (size_t)kTile * mma_pitch<D>() +
-                                  (size_t)out_cols<D>() * kTPitch);
-}
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap g_map,
+                          const __grid_constant__ CUtensorMap dq_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, int BH, int S,
+                          int H, int KVH, int causal, float scale) {
+  using T = DqTiles<D>;
+  constexpr int kDp = T::kDp, kM = T::kM, kOut = T::kOut;
+  constexpr int kStages = T::kStages, kQSlots = T::kQSlots;
 
-// K2: copy rows [r0, r0 + 64) of one head of a bf16 tensor (src: row 0 of
-// that head as 32-bit words, pitch between positions in words) into a
-// row-major tile dst (pitch mma_pitch<D>() elements) and, when dst_t is
-// given, the columns [c_lo, c_lo + out_cols<D>()) transposed into dst_t
-// (kTPitch elements per column).
-template <int D>
-__device__ __forceinline__ void stage_bf16(const uint32_t* __restrict__ src,
-                                           size_t pitch, int r0, uint32_t* dst,
-                                           __nv_bfloat16* dst_t, int c_lo) {
-  constexpr int kPairs = D / 2;
-  constexpr int kPw = mma_pitch<D>() / 2;
-  for (int i = threadIdx.x; i < kTile * kPairs; i += kThreads) {
-    const int r = i / kPairs;
-    const int c = i - r * kPairs;
-    const uint32_t w = src[(size_t)(r0 + r) * pitch + c];
-    dst[r * kPw + c] = w;
-    const int col = 2 * c - c_lo;  // c_lo and out_cols are even
-    if (dst_t != nullptr && col >= 0 && col < out_cols<D>()) {
-      dst_t[col * kTPitch + r] = __ushort_as_bfloat16((unsigned short)(w & 0xffffu));
-      dst_t[(col + 1) * kTPitch + r] = __ushort_as_bfloat16((unsigned short)(w >> 16));
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align_1024(smem_raw);  // kQSlots Q tiles
+  uint8_t* sG = sQ + kQSlots * T::kQBytes;     // kQSlots dO tiles
+  uint8_t* sK = sG + kQSlots * T::kQBytes;     // kStages K tiles
+  uint8_t* sV = sK + kStages * T::kKVBytes;    // kStages V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * T::kKVBytes);
+  uint64_t* q_empty = q_full + kQSlots;
+  uint64_t* k_full = q_empty + kQSlots;  // K and V rings: full and empty
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  // The block's work: items (b*h, k, column slice) for the query tiles
+  // n_qt - 1 - k and k of one head, k < cdiv(n_qt, 2), every gridDim.x-th
+  // from blockIdx.x (the middle tile of an odd n_qt is a pair of one), as
+  // K1 walks them. Under the causal mask every pair is the same work, so
+  // this static schedule balances the blocks; the pairs of one head are
+  // neighbours, so the blocks at work share a few heads' K/V in L2.
+  const int n_qt = (S + kM - 1) / kM;
+  const int n_half = (n_qt + 1) / 2;
+  const int n_items = BH * n_half * T::kSlices;
+  auto tiles_of = [&](int qt) {  // key tiles a query tile needs
+    int n = S / kKeys;
+    if (causal) n = min(n, (qt + 1) * kM / kKeys);
+    return n;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kQSlots; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&q_empty[s], T::kWG);
     }
-  }
-}
-
-// The a-fragment of rows (r, r + 8) of a row-major tile at k-step kk.
-template <int D>
-__device__ __forceinline__ void load_a(const uint32_t* tile, int r, int kk,
-                                       uint32_t (&a)[4]) {
-  constexpr int kPw = mma_pitch<D>() / 2;
-  const int cw = kk * 8 + threadIdx.x % 4;
-  a[0] = tile[r * kPw + cw];
-  a[1] = tile[(r + 8) * kPw + cw];
-  a[2] = tile[r * kPw + cw + 4];
-  a[3] = tile[(r + 8) * kPw + cw + 4];
-}
-
-// acc[n] += A x B^T over D, for the 8 column tiles of a 64-row tile B
-// (row-major in shared memory): A's rows are r, r + 8 of tile_a.
-template <int D>
-__device__ __forceinline__ void product_nt(const uint32_t* tile_a, int r,
-                                           const uint32_t* tile_b,
-                                           float (&acc)[kNTiles][4]) {
-  constexpr int kPw = mma_pitch<D>() / 2;
-  const int gr = (threadIdx.x % 32) / 4;
-  const int tg = threadIdx.x % 4;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<D>(tile_a, r, kk, a);
-    const int cw = kk * 8 + tg;
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-      const uint32_t* brow = tile_b + (n * 8 + gr) * kPw;
-      mma_bf16(acc[n], a, brow[cw], brow[cw + 4]);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], T::kWG);
+      hopper::mbar_init(&v_empty[s], T::kWG);
     }
+    hopper::mbar_init_fence();
   }
-}
+  __syncthreads();
 
-// acc[j] += X x T over the tile's 64 rows, where X is this warp's 16 x 64
-// fp32 score-shaped fragments (rounded to bf16 here) and T the transposed
-// tile (out_cols<D>() columns of kTPitch elements).
-template <int D>
-__device__ __forceinline__ void product_xt(const float (&x)[kNTiles][4],
-                                           const uint32_t* tile_t,
-                                           float (&acc)[out_cols<D>() / 8][4]) {
-  constexpr int kTw = kTPitch / 2;
-  const int gr = (threadIdx.x % 32) / 4;
-  const int tg = threadIdx.x % 4;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    const int cw = kk * 8 + tg;
-#pragma unroll
-    for (int j = 0; j < out_cols<D>() / 8; ++j) {
-      const uint32_t* trow = tile_t + (j * 8 + gr) * kTw;
-      mma_bf16(acc[j], a, trow[cw], trow[cw + 4]);
-    }
-  }
-}
-
-// Store rows (r, r + 8) of a 16 x out_cols fragment tile, times mul, as bf16
-// (dst: row 0 of the head at the block's first column, as 32-bit words).
-template <int D>
-__device__ __forceinline__ void store_rows(uint32_t* dst, size_t pitch, int r,
-                                           const float (&acc)[out_cols<D>() / 8][4],
-                                           float mul) {
-  const int tg = threadIdx.x % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t* row = dst + (size_t)(r + 8 * half) * pitch;
-#pragma unroll
-    for (int j = 0; j < out_cols<D>() / 8; ++j)
-      row[j * 4 + tg] = pack_bf16(acc[j][2 * half] * mul,
-                                  acc[j][2 * half + 1] * mul);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int S, int H, int KVH,
-                        int causal, float scale) {
-  constexpr int kPw = mma_pitch<D>() / 2;
-  constexpr int kPairs = D / 2;
-  constexpr int kOut = out_cols<D>() / 8;
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-
-  extern __shared__ uint32_t smem_u32[];
-  uint32_t* sQ = smem_u32;
-  uint32_t* sG = sQ + kTile * kPw;
-  uint32_t* sK = sG + kTile * kPw;
-  uint32_t* sV = sK + kTile * kPw;
-  __nv_bfloat16* sKt = reinterpret_cast<__nv_bfloat16*>(sV + kTile * kPw);
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int kvh = h / (H / KVH);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
-  const int c_lo = blockIdx.z * out_cols<D>();
-  const int warp = threadIdx.x / 32;
-  const int gr = (threadIdx.x % 32) / 4;
-  const int tg = threadIdx.x % 4;
-
-  const size_t q_pitch = (size_t)H * kPairs;  // in 32-bit words
-  const size_t kv_pitch = (size_t)KVH * kPairs;
-  const size_t q_off = ((size_t)b * S * H + h) * kPairs;
-  const size_t kv_off = ((size_t)b * S * KVH + kvh) * kPairs;
-  const uint32_t* k32 = reinterpret_cast<const uint32_t*>(k) + kv_off;
-  const uint32_t* v32 = reinterpret_cast<const uint32_t*>(v) + kv_off;
-  stage_bf16<D>(reinterpret_cast<const uint32_t*>(q) + q_off, q_pitch, q0, sQ,
-                nullptr, 0);
-  stage_bf16<D>(reinterpret_cast<const uint32_t*>(g) + q_off, q_pitch, q0, sG,
-                nullptr, 0);
-
-  const int r_lo = warp * 16 + gr;  // this thread's rows r_lo and r_lo + 8
-  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
-  const float lse_r[2] = {lse[(size_t)bh * S + qpos[0]],
-                          lse[(size_t)bh * S + qpos[1]]};
-  const float delta_r[2] = {delta[(size_t)bh * S + qpos[0]],
-                            delta[(size_t)bh * S + qpos[1]]};
-  float acc[kOut][4];
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int n_tiles = S / kTile;
-  if (causal) n_tiles = min(n_tiles, q0 / kTile + 1);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // the previous tile's sK, sKt and sV are read
-    stage_bf16<D>(k32, kv_pitch, k0, sK, sKt, c_lo);
-    stage_bf16<D>(v32, kv_pitch, k0, sV, nullptr, 0);
-    __syncthreads();
-
-    float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    product_nt<D>(sQ, r_lo, sK, s);
-    product_nt<D>(sG, r_lo, sV, dp);
-
-    // ds = p (dp - delta), in place of s. s[n] holds keys 8n + 2tg + {0, 1}
-    // of row r_lo in [0..1], of row r_lo + 8 in [2..3].
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e / 2;
-        const bool masked = causal && qpos[half] < k0 + n * 8 + 2 * tg + e % 2;
-        const float p = masked ? 0.f : expf(s[n][e] * scale - lse_r[half]);
-        s[n][e] = p * (dp[n][e] - delta_r[half]);
+  const int wg = hopper::warpgroup_index();
+  if (wg == 0) {
+    // Producer: one thread keeps the TMA loads in flight, running ahead
+    // into the next item while the consumers finish this one.
+    if constexpr (T::kWG == 2) hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int n = 0, tt = 0;  // query tiles and K/V tiles so far
+      for (int p = blockIdx.x; p < n_items; p += gridDim.x) {
+        const int pair = p / T::kSlices;
+        const int bh = pair / n_half, k = pair % n_half;
+        const int b = bh / H, h = bh % H;
+        const int kvh = h / (H / KVH);
+        for (int sub = 0; sub < 2; ++sub, ++n) {
+          const int qt = sub == 0 ? n_qt - 1 - k : k;
+          if (sub == 1 && qt == n_qt - 1 - k) break;
+          const int qs = n % kQSlots;
+          hopper::mbar_wait(&q_empty[qs], ((n / kQSlots) & 1) ^ 1);
+          hopper::mbar_expect_tx(&q_full[qs], 2 * T::kQBytes);
+          hopper::tma_load_tile<kDp>(sQ + qs * T::kQBytes, kM, &q_map, h,
+                                     qt * kM, b, &q_full[qs]);
+          hopper::tma_load_tile<kDp>(sG + qs * T::kQBytes, kM, &g_map, h,
+                                     qt * kM, b, &q_full[qs]);
+          const int n_tiles = tiles_of(qt);
+          for (int t = 0; t < n_tiles; ++t) {
+            const int s = (tt + t) % kStages;
+            const uint32_t parity = (((tt + t) / kStages) & 1) ^ 1;
+            hopper::mbar_wait(&k_empty[s], parity);
+            hopper::mbar_expect_tx(&k_full[s], T::kKVBytes);
+            hopper::tma_load_tile<kDp>(sK + s * T::kKVBytes, kKeys, &k_map,
+                                       kvh, t * kKeys, b, &k_full[s]);
+            hopper::mbar_wait(&v_empty[s], parity);
+            hopper::mbar_expect_tx(&v_full[s], T::kKVBytes);
+            hopper::tma_load_tile<kDp>(sV + s * T::kKVBytes, kKeys, &v_map,
+                                       kvh, t * kKeys, b, &v_full[s]);
+          }
+          tt += n_tiles;
+        }
       }
-    product_xt<D>(s, reinterpret_cast<const uint32_t*>(sKt), acc);
+    }
+    return;
   }
 
-  store_rows<D>(reinterpret_cast<uint32_t*>(dq) + q_off + c_lo / 2, q_pitch,
-                qpos[0], acc, scale);
+  // Consumers: warpgroup c owns query rows row_wg .. row_wg + 63 of each
+  // query tile and computes its key tiles 0 .. n_mine - 1: up to its
+  // diagonal when causal, none when its rows lie wholly past S (S is a
+  // multiple of 64). The tile's other key tiles it waits for and frees
+  // without computing (warpgroup 0's last, under the causal mask), so
+  // every slot is freed by both. Per key tile a pipeline of depth one:
+  // s and dp of tile t are issued together with dQ += ds K of tile t - 1,
+  // and p and ds of tile t are computed while the latter is still on the
+  // tensor cores.
+  if constexpr (T::kWG == 2) hopper::setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int tq = lane % 4;
+  const int r_lo = 16 * (tid / 32) + lane / 4;  // query rows r_lo, r_lo + 8
+  const float sl2 = scale * kLog2e;
+
+  int n = 0, tt = 0;
+  for (int p = blockIdx.x; p < n_items; p += gridDim.x) {
+    const int pair = p / T::kSlices;
+    const int c_lo = (p % T::kSlices) * kOut;
+    const int bh = pair / n_half, k = pair % n_half;
+    const int b = bh / H, h = bh % H;
+    for (int sub = 0; sub < 2; ++sub, ++n) {
+      const int qt = sub == 0 ? n_qt - 1 - k : k;
+      if (sub == 1 && qt == n_qt - 1 - k) break;
+      const int qs = n % kQSlots;
+      uint8_t* tQ = sQ + qs * T::kQBytes;
+      const uint8_t* tG = sG + qs * T::kQBytes;
+      const int row_wg = qt * kM + 64 * c;
+      const int n_tiles = tiles_of(qt);
+      int n_mine = row_wg < S ? n_tiles : 0;
+      if (causal && row_wg < S) n_mine = row_wg / kKeys + 1;
+
+      hopper::mbar_wait(&q_full[qs], (n / kQSlots) & 1);
+      if (n_mine > 0) {
+        const int qpos[2] = {row_wg + r_lo, row_wg + r_lo + 8};
+        float lse2[2], dl[2];  // lse in log2 units, and delta, of both rows
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          lse2[half] = lse[(size_t)bh * S + qpos[half]] * kLog2e;
+          dl[half] = delta[(size_t)bh * S + qpos[half]];
+        }
+        float dq[kOut / 2];
+#pragma unroll
+        for (int i = 0; i < kOut / 2; ++i) dq[i] = 0.f;
+        uint32_t da[kKeys / 16][4];  // ds of tile t - 1 in bf16: dQ's A
+
+        for (int t = 0; t < n_mine; ++t) {
+          const int s = (tt + t) % kStages;
+          const int sp = (tt + t + kStages - 1) % kStages;  // tile t - 1's
+          const uint32_t parity = ((tt + t) / kStages) & 1;
+          hopper::mbar_wait(&k_full[s], parity);
+          hopper::mbar_wait(&v_full[s], parity);
+          float sc[kKeys / 2], dp[kKeys / 2];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kDp / 16; ++kk)
+            hopper::wgmma_ss(sc, hopper::desc_k_major(tQ, kM, 64 * c, kk),
+                             hopper::desc_k_major(sK + s * T::kKVBytes, kKeys,
+                                                  0, kk),
+                             kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < kDp / 16; ++kk)
+            hopper::wgmma_ss(dp, hopper::desc_k_major(tG, kM, 64 * c, kk),
+                             hopper::desc_k_major(sV + s * T::kKVBytes, kKeys,
+                                                  0, kk),
+                             kk > 0);
+          hopper::wgmma_commit();
+          if (t > 0) {
+            // K read MN-major: the product contracts over the keys.
+#pragma unroll
+            for (int kk = 0; kk < kKeys / 16; ++kk)
+              hopper::wgmma_rs(dq, da[kk],
+                               hopper::desc_mn_major(sK + sp * T::kKVBytes,
+                                                     kKeys, c_lo / 64, kk),
+                               1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<1>();  // s and dp are ready; ds K runs on
+          } else {
+            hopper::wgmma_wait<0>();
+          }
+          hopper::fence_regs(sc);
+          hopper::fence_regs(dp);
+          hopper::release(&v_empty[s]);
+
+          // p = exp(s scale - lse), zeroed where the key follows the
+          // query (causal: only on the diagonal tile); ds = p (dp -
+          // delta), in sc.
+          const bool mask = causal && t == n_mine - 1;
+#pragma unroll
+          for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * half + e;
+                float pr = hopper::ex2(fmaf(sc[i], sl2, -lse2[half]));
+                if (mask && t * kKeys + 8 * j + 2 * tq + e > qpos[half])
+                  pr = 0.f;
+                sc[i] = pr * (dp[i] - dl[half]);
+              }
+
+          hopper::wgmma_wait<0>();  // dq and da are free again
+          hopper::fence_regs(dq);
+          if (t > 0) hopper::release(&k_empty[sp]);
+          // The accumulator's fragments of ds are the A operand of ds K:
+          // key columns 16kk..16kk+15 are column tiles 2kk and 2kk + 1.
+#pragma unroll
+          for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              da[kk][i] = pack_bf16(sc[8 * kk + 2 * i],
+                                    sc[8 * kk + 2 * i + 1]);
+        }
+        {  // dQ += ds K of the last tile
+          const int s = (tt + n_mine - 1) % kStages;
+          hopper::fence_regs(dq);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kKeys / 16; ++kk)
+            hopper::wgmma_rs(dq, da[kk],
+                             hopper::desc_mn_major(sK + s * T::kKVBytes,
+                                                   kKeys, c_lo / 64, kk),
+                             1);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dq);
+          hopper::release(&k_empty[s]);
+        }
+
+        // dq * scale in bf16, through this warpgroup's rows of its Q slot
+        // (their last reader was the S product above), then one TMA store
+        // per column box: rows past S and columns past D are not written.
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 64 * c + r_lo + 8 * half;
+#pragma unroll
+          for (int j = 0; j < kOut / 8; ++j)
+            hopper::st_swizzled(tQ, kM, r, 8 * j + 2 * tq,
+                                pack_bf16(dq[4 * j + 2 * half] * scale,
+                                          dq[4 * j + 2 * half + 1] * scale));
+        }
+        hopper::fence_async_shared();
+        hopper::warpgroup_sync(1 + c);
+        if (tid == 0) {
+#pragma unroll
+          for (int bx = 0; bx < kOut / 64; ++bx)
+            if (c_lo + bx * 64 < D)
+              hopper::tma_store(&dq_map,
+                                tQ + (bx * kM + 64 * c) * hopper::kRowBytes,
+                                c_lo + bx * 64, h, row_wg, b);
+          hopper::tma_store_wait();
+        }
+      }
+      // The key tiles past this warpgroup's diagonal (or all, past S).
+      for (int t = n_mine; t < n_tiles; ++t) {
+        const int s = (tt + t) % kStages;
+        const uint32_t parity = ((tt + t) / kStages) & 1;
+        hopper::mbar_wait(&k_full[s], parity);
+        hopper::mbar_wait(&v_full[s], parity);
+        hopper::release(&k_empty[s]);
+        hopper::release(&v_empty[s]);
+      }
+      // The slot is free for the next Q once the store has read it.
+      hopper::release(&q_empty[qs]);
+      tt += n_tiles;
+    }
+  }
 }
 
 // K3 for bf16: wgmma fed by TMA (hopper.cuh). One block per (b, KV head,
@@ -832,17 +947,26 @@ cudaError_t launch_dq(int dtype, const Args& a) {
         static_cast<const float*>(a.v), static_cast<const float*>(a.g), lse,
         delta, static_cast<float*>(a.out0), a.S, a.H, a.KVH, a.causal, a.scale);
   } else {
-    constexpr size_t smem = dq_mma_smem_bytes<D>();
-    if ((err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem)) != cudaSuccess)
+    using T = DqTiles<D>;
+    CUtensorMap q_map, k_map, v_map, g_map, dq_map;
+    if ((err = hopper::make_map(&q_map, a.q, a.B, a.S, a.H, D)) != cudaSuccess ||
+        (err = hopper::make_map(&k_map, a.k, a.B, a.S, a.KVH, D)) != cudaSuccess ||
+        (err = hopper::make_map(&v_map, a.v, a.B, a.S, a.KVH, D)) != cudaSuccess ||
+        (err = hopper::make_map(&g_map, a.g, a.B, a.S, a.H, D)) != cudaSuccess ||
+        (err = hopper::make_map(&dq_map, a.out0, a.B, a.S, a.H, D)) !=
+            cudaSuccess)
       return err;
-    const dim3 grid(a.B * a.H, a.S / kTile, D / out_cols<D>());
-    flash_bwd_dq_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.g), lse, delta,
-        static_cast<__nv_bfloat16*>(a.out0), a.S, a.H, a.KVH, a.causal,
-        a.scale);
+    // Persistent: one block per SM, or one per item if fewer.
+    int sms = 0;
+    if ((err = hopper::prepare_launch<flash_bwd_dq_wgmma_kernel<D>>(
+             T::kSmem, &sms)) != cudaSuccess)
+      return err;
+    const long long items = (long long)a.B * a.H *
+                            (((a.S + T::kM - 1) / T::kM + 1) / 2) * T::kSlices;
+    const int grid = (int)(items < sms ? items : sms);
+    flash_bwd_dq_wgmma_kernel<D><<<grid, T::kThreads, T::kSmem, a.stream>>>(
+        q_map, k_map, v_map, g_map, dq_map, lse, delta, a.B * a.H, a.S, a.H,
+        a.KVH, a.causal, a.scale);
   }
   return cudaGetLastError();
 }
@@ -889,7 +1013,7 @@ cudaError_t launch_dkv(int dtype, const Args& a) {
 
 template <bool kDq>
 cudaError_t dispatch(int D, int dtype, const Args& a) {
-  if (a.B < 1 || a.S < kTile || a.S % kTile || a.KVH < 1 || a.H % a.KVH ||
+  if (a.B < 1 || a.S < kKeys || a.S % kKeys || a.KVH < 1 || a.H % a.KVH ||
       a.S / kF32Rows > 65535 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   switch (D) {
@@ -907,7 +1031,7 @@ cudaError_t dispatch(int D, int dtype, const Args& a) {
 
 extern "C" {
 
-// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (mma kernels). q, dO
+// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma kernels). q, dO
 // (g) and the outputs as in the header note; lse and delta fp32 [B*H, S].
 // Return a cudaError_t: the launch's own error, or cudaErrorInvalidValue
 // for shapes the kernels do not take (S must be a multiple of 64).

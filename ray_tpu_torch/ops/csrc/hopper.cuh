@@ -1,5 +1,5 @@
-// Hopper (sm_90a) machinery shared by the wgmma kernels of K1 (flash_fwd.cu)
-// and K3 (flash_bwd.cu): TMA tensor maps and loads/stores, mbarriers, wgmma
+// Hopper (sm_90a) machinery shared by the wgmma kernels of K1 (flash_fwd.cu),
+// K2 and K3 (flash_bwd.cu): TMA tensor maps and loads/stores, mbarriers, wgmma
 // shared-memory descriptors and the wgmma instructions themselves.
 //
 // Tiles. Every bf16 tile lives in shared memory as TMA writes it with the

@@ -308,7 +308,7 @@ def _bwd_launch(kernel: str, q, k, v, g, lse, delta, causal: bool,
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool):
-    """Launch K2 (fp32: FMA; bf16: tensor cores) → dq in q's dtype."""
+    """Launch K2 (fp32: FMA; bf16: wgmma fed by TMA) → dq in q's dtype."""
     global dq_launches
     _check_cuda_inputs(q, k, v, g, lse, delta)
     dq = torch.empty_like(q)

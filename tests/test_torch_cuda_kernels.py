@@ -265,11 +265,13 @@ def test_flash_kernels_with_16_query_heads_over_2_kv_heads(cuda, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_flash_kernels_past_the_end_of_the_sequence(cuda, D, causal):
-    """S = 192 = 64 x 3: the last 128-row block of the bf16 kernels reaches
-    64 rows past S. Their 4-D tensor maps read zeros there (masked as keys
-    in K1), and the stores drop those rows."""
+    """S = 192 = 64 x 3: the last 128-row block of the bf16 kernels (K1,
+    K2; K3's key blocks) reaches 64 rows past S. Their 4-D tensor maps read
+    zeros there (masked as keys in K1; K2's warpgroup of those rows only
+    frees its key tiles), and the stores drop those rows and, at the padded
+    head dims, the columns past D."""
     q, k, v = _qkv(2, 192, 4, 2, D, torch.bfloat16, seed=D + 14, device=cuda)
     g = torch.from_numpy(np.random.default_rng(D).standard_normal(
         tuple(q.shape), dtype=np.float32)).to(cuda, torch.bfloat16)
@@ -285,6 +287,19 @@ def test_flash_kernels_past_the_end_of_the_sequence(cuda, D, causal):
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_bwd_dq_is_deterministic(cuda):
+    """K2 sums over the key tiles in registers and writes each dq tile
+    once, with no atomics: two runs agree bit for bit."""
+    q, k, v = _qkv(2, 512, 8, 2, 128, torch.bfloat16, seed=18, device=cuda)
+    g = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        tuple(q.shape), dtype=np.float32)).to(cuda, torch.bfloat16)
+    out, lse = fa._flash_forward_cuda(q, k, v, True)
+    delta = fa._delta(out, g)
+    dq0 = fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
+    dq1 = fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
+    assert torch.equal(dq0, dq1)
 
 
 def test_flash_bwd_dkv_is_deterministic(cuda):
