@@ -15,20 +15,22 @@ printed:
    bf16 kernels of K1, K2 and K3, which must use both, and which ptxas
    must neither spill nor serialize.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
-   version on the card, at an fp32 GQA shape, the serving shape and the
-   training shape; then K2 and K3 (the backward: dq, and dk/dv) against
-   theirs, at the training shape and at an fp32 GQA shape. Times of each
-   kernel (per call through its wrapper, and per launch in a stream of
-   launches, which hides the host's share), its plain version and
-   PyTorch's ``scaled_dot_product_attention`` forward or backward (a
-   yardstick only, never called by the port) beside the least time the
-   card could take, and the rates the kernel reached.
+   version on the card, at an fp32 GQA shape, gpt-1.3b's serving and
+   training shapes and llama3-8b's (32 query heads over 8 KV heads); then
+   K2 and K3 (the backward: dq, and dk/dv) against theirs, at an fp32 GQA
+   shape and at both models' training shapes. Times of each kernel (per
+   call through its wrapper, and per launch in a stream of launches,
+   which hides the host's share), its plain version and PyTorch's
+   ``scaled_dot_product_attention`` forward or backward (a yardstick only,
+   never called by the port; ``enable_gqa`` under GQA) beside the least
+   time the card could take, and the rates the kernel reached.
 4. Serving: gpt-1.3b at full width (random weights from a seeded
    generator, bf16 compute, flash attention) answers 8 requests, arriving
    while it decodes, through the port's ContinuousBatcher; later requests
    must join a running batch, and K1 must run once per layer per step.
    Then the same step under dot attention, and gpt-micro on the card
-   against the CPU, check what comes out.
+   against the CPU, check what comes out. 4b: llama3-8b at full width and
+   depth is served the same way, K1 on grouped-query attention.
 5. Training: gpt-1.3b at full width and depth takes 8 steps of the JAX
    package's headline recipe (batch 12 x 1024, flash attention, full
    remat, chunked loss, Adafactor) through the port's train step: 2
@@ -39,9 +41,16 @@ printed:
    (its out and lse are kept), a profile of one step, which must show
    the three wgmma kernels by name, and gpt-micro's
    first gradients and train step on the card against the CPU (3 steps,
-   accumulation 1 and 2).
+   accumulation 1 and 2). 5b: llama3-8b at full width and depth takes 6
+   steps (2 warm-up) of batch 1 x 4096 (flash attention, remat, the
+   unchunked loss, Adafactor), each launching K1 64 times and K2 and K3
+   32 times, with the same checks of the step-0 loss and first update,
+   its peak memory and a profile of one step. 5c: llama-micro (fp32, 8
+   query heads over 4 KV heads) on the card against the CPU: logits,
+   first gradients and 3 Adafactor steps.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
-   library_launch_ms per launch); the last line is the result.
+   library_launch_ms per launch, at gpt-1.3b's shapes; the same at
+   llama3-8b's under "llama3_8b"); the last line is the result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` runs phase 3 alone for the
 ``ray_tpu_torch`` of the checkout at ROOT (its kernels build under
@@ -129,6 +138,30 @@ TRAIN_OVERRIDES = dict(attn_impl="flash", remat=True, remat_policy="full",
 # 0.02 * sqrt(2048) = 0.905, and the cross-entropy of a random target is
 # ln(50304) + 0.905^2 / 2 = 11.24.
 LOSS0, LOSS0_TOL = 11.24, 0.3
+# llama3-8b (ray_tpu/models/llama.py: 32 layers, d_model 4096, 32 query
+# heads over 8 KV heads of 128, d_ff 14336, vocab 128256, rope_theta
+# 500000), served as gpt-1.3b is and trained at batch 1 x 4096 with flash
+# attention and remat (the preset's own), under Adafactor.
+LLAMA_PRESET = "llama3-8b"
+LLAMA_HEADS = (32, 8)
+LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ = 1, 4096
+LLAMA_WARMUP, LLAMA_STEPS = 2, 4
+# Step-0 loss of random logits, as LOSS0: after the final RMSNorm each
+# hidden unit has mean square 1, so a logit of the N(0, 0.02^2) head has
+# std 0.02 * sqrt(4096) = 1.28 and the cross-entropy of a random target is
+# ln(128256) + 1.28^2 / 2 = 12.58 (on the CPU at d_model 4096, 2 layers,
+# vocab 8192: 9.814 against the formula's 9.830).
+LLAMA_LOSS0, LLAMA_LOSS0_TOL = 12.58, 0.3
+# llama3-8b logits, flash against dot attention in bf16. Both paths round
+# to bf16 several times per layer, and at d_model 4096 the logits' std is
+# 0.02 * sqrt(4096) = 1.28, so |logit| reaches 8, where a bf16 ulp is
+# 2^-4 = 0.0625. On the CPU at d_model 4096 (2-8 layers, S=1024) the gap
+# was 0.15-0.19, and each path was 0.14-0.21 from the same forward in fp32;
+# on the card at 32 layers and [4, 1024] it was 0.59 (9.5 ulps). 1.0 is 16
+# ulps at the top of the range. _serve also runs the step in fp32 and holds
+# flash to it by the same bound, so a wrong mask, scale or KV head, which
+# moves flash's logits by O(1) while dot stays put, does not pass.
+LLAMA_FLASH_VS_DOT_TOL = 1.0
 NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
@@ -364,11 +397,12 @@ def _k1_times(torch, fa, q, k, v, dname):
         torch, lambda: fa._flash_forward_reference(q, k, v, True, 512, 512),
         10)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=kvh != H)
     sdpa_call_ms = _median_ms(torch, sdpa, 30)
     sdpa_ms = _median_ms_per_launch(torch, sdpa, 30)
     bound_ms, bound_by = _bound_ms(B, S, H, kvh, D, dname, True)
-    print(f"K1 at B={B} S={S} H={H} D={D} bf16 causal: kernel "
+    print(f"K1 at B={B} S={S} H={H}/{kvh} D={D} bf16 causal: kernel "
           f"{call_ms:.4f} ms per call ({kernel_ms:.4f} per launch), plain "
           f"{plain_ms:.4f} ms, sdpa {sdpa_call_ms:.4f} ms per call "
           f"({sdpa_ms:.4f} per launch), bound {bound_ms:.4f} ms "
@@ -381,8 +415,8 @@ def _k1_times(torch, fa, q, k, v, dname):
 
 
 def phase_kernel_check(torch):
-    """K1 at an fp32 GQA shape, at the serving shape and at the training
-    shape; the kernels line reports the serving shape."""
+    """K1 at an fp32 GQA shape, and at the serving and training shapes of
+    gpt-1.3b and llama3-8b; the kernels line reports the serving shapes."""
     from ray_tpu_torch.ops import flash_attention as fa
     # (b) fp32, head dim 80, non-causal, GQA 8 over 2.
     _check_kernel(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256, 1)
@@ -395,6 +429,18 @@ def phase_kernel_check(torch):
     q, k, v, _, _ = _check_kernel(torch, fa, TRAIN_BATCH, TRAIN_SEQ, 16, 16,
                                   128, torch.bfloat16, True, 512, 2)
     _k1_times(torch, fa, q, k, v, dname)
+    # (d, e) llama3-8b's serving and training shapes: 32 query heads over 8
+    # KV heads, k and v drawn for each head, the model's 1024 x 1024 tiles
+    # in the plain version.
+    H, KVH = LLAMA_HEADS
+    q, k, v, err, _ = _check_kernel(torch, fa, NUM_SLOTS, SEQ, H, KVH, 128,
+                                    torch.bfloat16, True, 1024, 5)
+    row["llama3_8b"] = {"max_abs_err": err,
+                        **_k1_times(torch, fa, q, k, v, dname)}
+    q, k, v, _, _ = _check_kernel(torch, fa, LLAMA_TRAIN_BATCH,
+                                  LLAMA_TRAIN_SEQ, H, KVH, 128,
+                                  torch.bfloat16, True, 1024, 6)
+    row["llama3_8b"]["training"] = _k1_times(torch, fa, q, k, v, dname)
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -438,17 +484,13 @@ def _check_backward(torch, fa, B, S, H, KVH, D, dtype, causal, blk, seed):
     return (q, k, v, g, out, lse, delta), errs, dname
 
 
-def phase_backward_check(torch):
-    """K2/K3 at an fp32 GQA shape and at gpt-1.3b's training shape, with
-    times of each kernel, its plain version and SDPA's backward."""
+def _bwd_times(torch, fa, B, S, H, KVH, D, blk, seed):
+    """K2 and K3 checked at one bf16 causal shape, with times of each
+    kernel, its plain version (tiles of ``blk``) and SDPA's backward;
+    printed and returned as kernels-line rows."""
     import torch.nn.functional as F
-    from ray_tpu_torch.ops import flash_attention as fa
-    _check_backward(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256,
-                    3)
-    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 16, 128
-    blk = 512  # the plain version's tiles: GPTConfig's attn_blk_q/k
     (q, k, v, g, out, lse, delta), errs, dname = _check_backward(
-        torch, fa, B, S, H, H, D, torch.bfloat16, True, blk, 4)
+        torch, fa, B, S, H, KVH, D, torch.bfloat16, True, blk, seed)
     dq = lambda: fa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, True)
     dkv = lambda: fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True)
     call_ms = {"dq": _median_ms(torch, dq, 30), "dkv": _median_ms(torch, dkv,
@@ -462,7 +504,8 @@ def phase_backward_check(torch):
     # The yardstick: SDPA's backward, which computes dq, dk and dv at once.
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=KVH != H)
     gt = g.transpose(1, 2).contiguous()
     sdpa_bwd = lambda: torch.autograd.grad(ref_out, (qt, kt, vt), gt,
                                            retain_graph=True)
@@ -472,25 +515,42 @@ def phase_backward_check(torch):
     for name, kernel, ms, plain, err in (
             ("K2", "dq", dq_ms, dq_plain, errs["dq"]),
             ("K3", "dkv", dkv_ms, dkv_plain, max(errs["dk"], errs["dv"]))):
-        bound_ms, bound_by = _bound_ms(B, S, H, H, D, dname, True, kernel)
+        bound_ms, bound_by = _bound_ms(B, S, H, KVH, D, dname, True, kernel)
         per_call = call_ms[kernel]
-        print(f"{name} at B={B} S={S} H={H} D={D} bf16 causal: kernel "
+        print(f"{name} at B={B} S={S} H={H}/{KVH} D={D} bf16 causal: kernel "
               f"{per_call:.4f} ms per call ({ms:.4f} per launch), plain "
               f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel "
               f"at {bound_ms / per_call:.2%} of the bound per call "
               f"({bound_ms / ms:.2%} per launch), per launch "
-              f"{_rates(B, S, H, H, D, dname, kernel, ms)}")
+              f"{_rates(B, S, H, KVH, D, dname, kernel, ms)}")
         rows[kernel] = {"max_abs_err": err, "ms": per_call, "launch_ms": ms,
                         "plain_ms": plain, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": sdpa_bwd_call_ms,
                         "library_launch_ms": sdpa_bwd_ms}
-    print(f"SDPA backward (dq, dk and dv at once) {sdpa_bwd_call_ms:.4f} ms "
-          f"per call ({sdpa_bwd_ms:.4f} per launch); K2 + K3 "
-          f"{call_ms['dq'] + call_ms['dkv']:.4f} ms per call "
-          f"({dq_ms + dkv_ms:.4f} per launch)")
+    print(f"SDPA backward at H={H}/{KVH} (dq, dk and dv at once) "
+          f"{sdpa_bwd_call_ms:.4f} ms per call ({sdpa_bwd_ms:.4f} per "
+          f"launch); K2 + K3 {call_ms['dq'] + call_ms['dkv']:.4f} ms per "
+          f"call ({dq_ms + dkv_ms:.4f} per launch)")
     del q, k, v, g, out, lse, delta, qt, kt, vt, ref_out, gt
     torch.cuda.empty_cache()
     return rows["dq"], rows["dkv"]
+
+
+def phase_backward_check(torch):
+    """K2/K3 at an fp32 GQA shape and at gpt-1.3b's and llama3-8b's
+    training shapes, with times of each kernel, its plain version and
+    SDPA's backward; the kernels line reports gpt-1.3b's shape."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    _check_backward(torch, fa, 2, 256, 8, 2, 80, torch.float32, False, 256,
+                    3)
+    # The plain version's tiles: GPTConfig's attn_blk_q/k (512), Llama's
+    # flash tiles (1024).
+    k2, k3 = _bwd_times(torch, fa, TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128, 512,
+                        4)
+    k2["llama3_8b"], k3["llama3_8b"] = _bwd_times(
+        torch, fa, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, *LLAMA_HEADS, 128,
+        1024, 7)
+    return k2, k3
 
 
 def _zero_counts(fa):
@@ -538,20 +598,38 @@ def _decode_engine(torch, model, serve):
 
 
 def phase_serving(torch):
+    from ray_tpu_torch.models import gpt
+    return _serve(torch, gpt, gpt.config(SERVE_PRESET, attn_impl="flash"),
+                  SERVE_PRESET, FLASH_VS_DOT_TOL)
+
+
+def phase_llama_serving(torch):
+    """llama3-8b served as gpt-1.3b is: K1 on 32 query heads over 8 KV
+    heads, once per layer per step."""
+    from ray_tpu_torch.models import llama
+    return _serve(torch, llama, llama.config(LLAMA_PRESET, attn_impl="flash"),
+                  LLAMA_PRESET, LLAMA_FLASH_VS_DOT_TOL)
+
+
+def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
+    """8 requests through the port's ContinuousBatcher over ``module``'s
+    model at ``cfg`` (random weights from a seeded generator, flash
+    attention); then the last step's logits under flash and dot attention,
+    and a profile of one step. Frees the model and returns the K1 launches
+    of the served run."""
     from dataclasses import replace
 
     from ray_tpu_torch import serve
-    from ray_tpu_torch.models import gpt
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cfg = gpt.config(SERVE_PRESET, attn_impl="flash")
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    model = gpt.init(cfg, gen, device=DEVICE).eval()
+    model = module.init(cfg, gen, device=DEVICE).eval()
     torch.cuda.synchronize()
-    print(f"serve: {SERVE_PRESET} ({cfg.num_params() / 1e9:.3f} B params, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) "
-          f"initialised in {time.perf_counter() - t0:.2f} s")
+    heads = f"{cfg.n_heads}/{cfg.kv_heads}"
+    print(f"serve: {preset} ({cfg.num_params() / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads {heads}, "
+          f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
@@ -591,28 +669,36 @@ def phase_serving(torch):
           f"K1 launched {launches} times over {steps} steps, expected "
           f"{cfg.n_layers} per step")
     check(dq_n == dkv_n == 0, "serving launched a backward kernel")
-    print(f"serve: {N_REQUESTS} requests, one every {ARRIVAL_STEPS} steps, "
-          f"prompt lengths {lens.tolist()}, {MAX_NEW} new tokens each; "
-          f"{steps} steps in {wall:.3f} s "
+    print(f"serve: {preset}: {N_REQUESTS} requests, one every "
+          f"{ARRIVAL_STEPS} steps, prompt lengths {lens.tolist()}, {MAX_NEW} "
+          f"new tokens each; {steps} steps in {wall:.3f} s "
           f"({wall / steps * 1e3:.2f} ms/step, "
           f"{N_REQUESTS * MAX_NEW / wall:.2f} tokens/s); K1 launches "
           f"{launches} = {cfg.n_layers} x {steps}; stats {stats}")
     print(f"serve: first request's tokens {outs[0]}")
 
-    # The last step's buffer under flash and under dot attention.
+    # The last step's buffer under flash and under dot attention, and under
+    # dot attention in fp32 (parameters are fp32; TF32 is off).
     with torch.inference_mode():
         flash = model(state["buf"]).float()
         model.cfg = replace(cfg, attn_impl="dot")
         dot = model(state["buf"]).float()
+        model.cfg = replace(cfg, attn_impl="dot", dtype=torch.float32)
+        fp32 = model(state["buf"])
         model.cfg = cfg
     check(flash.shape == (NUM_SLOTS, SEQ, cfg.vocab_size),
           f"logits shape {tuple(flash.shape)}")
     check(bool(torch.isfinite(flash).all()), "non-finite logits")
-    gap = float((flash - dot).abs().max())
-    print(f"serve: max|logit| {float(flash.abs().max()):.4f}; flash vs dot "
-          f"max|dlogit| {gap:.4f} (bound {FLASH_VS_DOT_TOL})")
-    check(gap <= FLASH_VS_DOT_TOL, "flash and dot logits disagree")
-    del flash, dot
+    gap, gap32, dot32 = (float((a - b).abs().max()) for a, b in (
+        (flash, dot), (flash, fp32), (dot, fp32)))
+    print(f"serve: {preset}: max|logit| {float(flash.abs().max()):.4f}; "
+          f"flash vs dot max|dlogit| {gap:.4f} (bound {flash_vs_dot_tol}); "
+          f"against the fp32 forward: flash {gap32:.4f} (same bound), dot "
+          f"{dot32:.4f}")
+    check(gap <= flash_vs_dot_tol, "flash and dot logits disagree")
+    check(gap32 <= flash_vs_dot_tol,
+          "flash logits disagree with the fp32 forward")
+    del flash, dot, fp32
     _profile_step(torch, model, state["buf"])
     # The engine's parked decode task and the engine refer to each other:
     # collect the cycle, so the model's memory is free for later phases.
@@ -888,6 +974,179 @@ def phase_small_training(torch):
               f"accumulation {accum}")
 
 
+def _llama_step(torch, llama, model, params, opt, opt_state, batch):
+    """One Llama training step, composed as the JAX package's tests compose
+    theirs (it has no Llama train step): ``loss_fn``, its gradients, the
+    optimizer's update in place and ``apply_updates`` → (the optimizer's
+    state, metrics)."""
+    from ray_tpu_torch.parallel import optim
+    loss, metrics = llama.loss_fn(model, batch["tokens"], batch["targets"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    with torch.no_grad():
+        updates, opt_state = opt.update(dict(zip(params, grads)), opt_state,
+                                        params)
+        optim.apply_updates(params, updates)
+    return opt_state, metrics
+
+
+def _fingerprint(torch, params):
+    """Each tensor's fp64 sum and L2 norm, on the card (a copy of 8 B fp32
+    parameters would not fit beside the step)."""
+    return torch.stack([torch.stack((
+        torch.sum(p, dtype=torch.float64),
+        torch.linalg.vector_norm(p, dtype=torch.float64)))
+        for p in params.values()]).cpu()
+
+
+def phase_llama_training(torch):
+    """llama3-8b at full width and depth: batch 1 x 4096, flash attention,
+    remat, the unchunked loss and Adafactor (lr 1e-4 after 100 warm-up
+    steps, so 0 at step 0)."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = llama.config(LLAMA_PRESET, attn_impl="flash", remat=True)
+    opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+    t0 = time.perf_counter()
+    model = llama.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                       DEVICE)
+    params = dict(model.named_parameters())
+    opt_state = opt.init(params, llama.leaf_groups(model))
+    batch = _train_batch(torch, cfg, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, 0,
+                         DEVICE)
+    before = _fingerprint(torch, params)
+    torch.cuda.synchronize()
+    print(f"train: {LLAMA_PRESET} ({cfg.num_params() / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.kv_heads}), batch {LLAMA_TRAIN_BATCH} x "
+          f"{LLAMA_TRAIN_SEQ}, flash attention, remat, unchunked loss, "
+          f"Adafactor lr 1e-4; state initialised in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    n_steps = LLAMA_WARMUP + LLAMA_STEPS
+    losses, step_s, per_step = [], [], []
+    _zero_counts(fa)
+    for i in range(n_steps):
+        if i == LLAMA_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        opt_state, metrics = _llama_step(torch, llama, model, params, opt,
+                                         opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            check(torch.equal(_fingerprint(torch, params), before),
+                  "the first update changed a parameter")
+    counts = _counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    check(all(c == per_layer for c in per_step),
+          f"launches per step (K1, K2, K3) {per_step}, expected {per_layer}")
+    check(np.isfinite(losses).all()
+          and abs(losses[0] - LLAMA_LOSS0) <= LLAMA_LOSS0_TOL,
+          f"step-0 loss {losses[0]} is not within {LLAMA_LOSS0_TOL} of "
+          f"{LLAMA_LOSS0}")
+    timed = step_s[LLAMA_WARMUP:]
+    mean_s = statistics.mean(timed)
+    tokens_s = LLAMA_TRAIN_BATCH * LLAMA_TRAIN_SEQ / mean_s
+    # The attention term at the trained length, not the preset's 8192.
+    flops = llama.flops_per_token(replace(cfg, max_seq_len=LLAMA_TRAIN_SEQ))
+    mfu = tokens_s * flops / PEAK_FLOPS["bfloat16"]
+    print(f"train: {LLAMA_PRESET}: losses {[round(x, 5) for x in losses]}; "
+          f"first update left every parameter's fp64 sum and norm unchanged")
+    print(f"train: {LLAMA_PRESET}: {LLAMA_STEPS} timed steps: "
+          f"{[round(t * 1e3, 2) for t in timed]} ms; mean {mean_s * 1e3:.2f}"
+          f" ms/step (std {statistics.pstdev(timed) * 1e3:.2f}), "
+          f"{tokens_s:.1f} tokens/s, model FLOPs {flops:.4e}/token (S = "
+          f"{LLAMA_TRAIN_SEQ}), MFU {mfu:.2%} of the 989 TFLOP/s bf16 peak; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"train: {LLAMA_PRESET}: launches over {n_steps} steps (K1, K2, "
+          f"K3) {counts} = {per_layer} per step")
+    _profile(torch, lambda: _llama_step(torch, llama, model, params, opt,
+                                        opt_state, batch),
+             f"one training step of {LLAMA_PRESET}", 20,
+             expect=WGMMA_KERNELS)
+    del model, params, opt_state, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_small(torch):
+    """llama-micro (fp32, 8 query heads over 4 KV heads: the fp32 kernels'
+    GQA path) on the card against the CPU from the same weights and
+    batches: logits, the first gradients, and 3 Adafactor steps (lr 0 at
+    step 0)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+    cfg = llama.config("llama-micro", attn_impl="flash")
+    results = {}
+    for device in ("cpu", DEVICE):
+        model = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        if device != "cpu":
+            card = llama.Llama(cfg, device=device)
+            card.load_state_dict(model.state_dict())
+            model = card
+        params = dict(model.named_parameters())
+        opt = ts.memory_efficient_optimizer(1e-2, warmup_steps=1)
+        opt_state = opt.init(params, llama.leaf_groups(model))
+        batches = [_train_batch(torch, cfg, 4, 256, 20 + i, device)
+                   for i in range(3)]
+        with torch.inference_mode():
+            logits = model(batches[0]["tokens"]).cpu()
+        loss, _ = llama.loss_fn(model, batches[0]["tokens"],
+                                batches[0]["targets"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = {n: g.cpu() for n, g in zip(params, grads)}
+        losses = []
+        for b in batches:
+            opt_state, metrics = _llama_step(torch, llama, model, params, opt,
+                                             opt_state, b)
+            losses.append(float(metrics["loss"]))
+        results[device] = (logits, grads, np.array(losses), {
+            n: p.detach().cpu() for n, p in params.items()})
+    (ref_x, ref_g, ref_l, ref_p), (got_x, got_g, got_l, got_p) = (
+        results["cpu"], results[DEVICE])
+    logit_err = float((got_x - ref_x).abs().max())
+    grad_err = max(float((got_g[n] - ref_g[n]).norm() / ref_g[n].norm())
+                   for n in ref_g)
+    p0 = dict(llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+              .named_parameters())
+    loss_err = float(np.abs(got_l / ref_l - 1).max())
+    update_err = max(float((got_p[n] - ref_p[n]).norm()
+                           / (ref_p[n] - p0[n].detach()).norm())
+                     for n in ref_p)
+    print(f"llama-micro fp32, card kernels vs CPU plain versions: max|dlogit|"
+          f" {logit_err:.3e} (bound {MICRO_TOL:.0e}); max over tensors of "
+          f"|dgrad| / |grad| {grad_err:.3e} (bound {MICRO_GRAD_RTOL:.0e}); "
+          f"3 Adafactor steps, losses {got_l.round(6).tolist()}, max rel "
+          f"dloss {loss_err:.3e} (bound {MICRO_LOSS_RTOL:.0e}), max over "
+          f"tensors of |dparam| / |update| {update_err:.3e} (bound "
+          f"{MICRO_UPDATE_RTOL:.0e})")
+    check(bool(((got_x - ref_x).abs() <= MICRO_TOL + MICRO_TOL * ref_x.abs())
+               .all()), "llama-micro logits on the card disagree with the CPU")
+    check(grad_err <= MICRO_GRAD_RTOL,
+          "llama-micro gradients on the card disagree with the CPU")
+    check(loss_err <= MICRO_LOSS_RTOL and update_err <= MICRO_UPDATE_RTOL,
+          "llama-micro training on the card disagrees with the CPU")
+
+
+def _timed(phase, fn, *args):
+    """``fn(*args)``, printing the phase's seconds."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
 def kernel_times(root):
     """Phase 3 alone (K1-K3 checked and timed) for the ray_tpu_torch of
     another checkout under ``root``, for example a parent commit unpacked
@@ -904,25 +1163,31 @@ def main():
     if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
         return kernel_times(sys.argv[2])
     check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernel-times ROOT]")
+    t_start = time.perf_counter()
     torch, name = phase_environment()
-    phase_build()
-    k1 = phase_kernel_check(torch)
-    k2, k3 = phase_backward_check(torch)
-    k1_serve = phase_serving(torch)
-    phase_small_reference(torch)
-    (k1_train, k2_train, k3_train), _ = phase_training(torch)
-    phase_small_training(torch)
+    _timed("2", phase_build)
+    k1 = _timed("3 (K1)", phase_kernel_check, torch)
+    k2, k3 = _timed("3 (K2, K3)", phase_backward_check, torch)
+    k1_serve = _timed("4", phase_serving, torch)
+    _timed("4 (gpt-micro)", phase_small_reference, torch)
+    k1_llama_serve = _timed("4b", phase_llama_serving, torch)
+    (k1_train, k2_train, k3_train), _ = _timed("5", phase_training, torch)
+    _timed("5 (gpt-micro)", phase_small_training, torch)
+    k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
+    _timed("5c", phase_llama_small, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-         "replaces": ref + "37", "launches": k1_serve + k1_train, **k1},
+         "replaces": ref + "37",
+         "launches": k1_serve + k1_llama_serve + k1_train + k1_llama, **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
-         "launches": k2_train, **k2},
+         "launches": k2_train + k2_llama, **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
-         "launches": k3_train, **k3}]
+         "launches": k3_train + k3_llama, **k3}]
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

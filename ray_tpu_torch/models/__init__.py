@@ -1,1 +1,3 @@
-"""Models of the port (the GPT family's dense inference path)."""
+"""Models of the port: ``gpt`` (the GPT family) and ``llama`` (the Llama
+family), each with its forward, loss and rematerialisation for serving
+and training."""

@@ -538,7 +538,13 @@ def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
     leaves and layers stacked on a leading ``[L, ...]`` axis. Values are
     copied into ``cfg.param_dtype`` (exact when the leaves are of that
     dtype)."""
-    model = GPT(cfg, device)
+    return _load_jax_params(GPT(cfg, device), params)
+
+
+def _load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
+    """Copy ``params`` (the JAX package's nested dict, layers stacked on a
+    leading ``[L, ...]`` axis) into ``model``'s tensors and its
+    ``blocks``; returns ``model``."""
     layers = params["layers"]
     with torch.no_grad():
         for name, p in model.named_parameters(recurse=False):
@@ -549,12 +555,14 @@ def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
     return model
 
 
-def leaf_groups(model: GPT) -> Dict[str, List[str]]:
-    """The JAX package's parameter leaves, each with the names of the
-    port's tensors that hold it, in the structure :func:`to_jax_params`
-    walks: ``"wte"`` → ``["wte"]``; a layer leaf such as ``"layers.wq"``
-    → ``["blocks.0.wq", ..., "blocks.{L-1}.wq"]``, the slices of its
-    leading ``[L, ...]`` axis in order."""
+def leaf_groups(model: nn.Module) -> Dict[str, List[str]]:
+    """The JAX package's parameter leaves of ``model`` (a GPT, or any
+    model of the port whose layers are its ``blocks``), each with the
+    names of the port's tensors that hold it, in the structure
+    :func:`to_jax_params` walks: ``"wte"`` → ``["wte"]``; a layer leaf
+    such as ``"layers.wq"`` → ``["blocks.0.wq", ...,
+    "blocks.{L-1}.wq"]``, the slices of its leading ``[L, ...]`` axis in
+    order."""
     groups = {name: [name]
               for name, _ in model.named_parameters(recurse=False)}
     for name, _ in model.blocks[0].named_parameters():
@@ -563,8 +571,9 @@ def leaf_groups(model: GPT) -> Dict[str, List[str]]:
     return groups
 
 
-def to_jax_params(model: GPT) -> Dict[str, Any]:
-    """The inverse of :func:`from_jax_params`: the JAX package's nested
+def to_jax_params(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params` (for a GPT, or any model of
+    the port whose layers are its ``blocks``): the JAX package's nested
     parameter dict with numpy leaves, layers stacked on a leading ``[L,
     ...]`` axis."""
     params = {name: p.detach().cpu().numpy()

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import gpt
+from ray_tpu_torch.models import gpt, llama
 from ray_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -330,3 +330,80 @@ def test_each_wrapper_launches_its_kernel_once(cuda, dtype):
     torch.cuda.synchronize()
     assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+def _check_forward(q, k, v, causal, blk_q, blk_k):
+    """K1 through the wrapper against its plain version on the same
+    inputs."""
+    before = fa.launches
+    out, lse = fa._flash_forward(q, k, v, causal, blk_q, blk_k)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, causal, blk_q,
+                                                   blk_k)
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+
+
+def test_flash_kernel_at_the_llama3_8b_serving_shape(cuda):
+    """llama3-8b's attention in one decode step of the serving path: 32
+    query heads over 8 KV heads of 128 (k and v drawn for each head, so a
+    wrong KV head shows), bf16, causal, Llama's 1024 x 1024 tiles."""
+    q, k, v = _qkv(4, 1024, 32, 8, 128, torch.bfloat16, seed=20,
+                   device=cuda)
+    _check_forward(q, k, v, True, 1024, 1024)
+
+
+def test_flash_kernels_at_the_llama3_8b_training_shape(cuda):
+    """llama3-8b's attention in one training step: B=1, S=4096, 32 query
+    heads over 8 KV heads of 128, bf16, causal; K1, then K2 and K3 (which
+    sums the 4 query heads of each KV head)."""
+    q, k, v = _qkv(1, 4096, 32, 8, 128, torch.bfloat16, seed=21,
+                   device=cuda)
+    _check_forward(q, k, v, True, 1024, 1024)
+    _check_backward(q, k, v, True, 1024, 1024, seed=22)
+
+
+def _llama_micro(device):
+    """llama-micro (fp32, 8 query heads over 4 KV heads, flash attention)
+    on the CPU and the same weights on ``device``, and a batch of tokens."""
+    cfg = llama.config("llama-micro", attn_impl="flash")
+    cpu = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = llama.Llama(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (2, 256)))
+    return cfg, cpu, card, tokens
+
+
+def test_llama_forward_on_the_card_launches_k1_once_per_layer(cuda):
+    """The fp32 kernels' GQA path against the plain versions on the CPU, at
+    the bound of tests/test_torch_llama.py's fp32 logits."""
+    cfg, cpu, card, tokens = _llama_micro(cuda)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    with torch.inference_mode():
+        got = card(tokens.to(cuda))
+        torch.cuda.synchronize()
+        ref = cpu(tokens)
+    assert (fa.launches - before[0], fa.dq_launches - before[1],
+            fa.dkv_launches - before[2]) == (cfg.n_layers, 0, 0)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_llama_micro_backward_on_the_card_matches_the_cpu(cuda):
+    """loss_fn's gradients through K1-K3 on the card (once per layer each)
+    against the plain route on the CPU: each tensor's difference within
+    1e-4 of its norm (fp32 sums in different orders)."""
+    cfg, cpu, card, tokens = _llama_micro(cuda)
+    llama.loss_fn(cpu, tokens, tokens)[0].backward()
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    llama.loss_fn(card, tokens.to(cuda), tokens.to(cuda))[0].backward()
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fa.dq_launches - before[1],
+            fa.dkv_launches - before[2]) == (cfg.n_layers,) * 3
+    for (name, p), (_, ref) in zip(card.named_parameters(),
+                                   cpu.named_parameters()):
+        err = float((p.grad.cpu() - ref.grad).norm() / ref.grad.norm())
+        assert err <= 1e-4, (name, err)
