@@ -30,7 +30,12 @@ printed:
    must join a running batch, and K1 must run once per layer per step.
    Then the same step under dot attention, and gpt-micro on the card
    against the CPU, check what comes out. 4b: llama3-8b at full width and
-   depth is served the same way, K1 on grouped-query attention.
+   depth is served the same way, K1 on grouped-query attention. 4c: the
+   same llama3-8b (same seed), placed on a 1-rank mesh by
+   ``tp_fsdp_rules()`` (a 1-rank NCCL process group from
+   ``prepare_mesh``; FSDP2 and DTensor parameters), runs forward on 4b's
+   last buffer: K1 once per layer on the local heads, logits within one
+   bf16 ulp at |logit| 8 of 4b's.
 5. Training: gpt-1.3b at full width and depth takes 8 steps of the JAX
    package's headline recipe (batch 12 x 1024, flash attention, full
    remat, chunked loss, Adafactor) through the port's train step: 2
@@ -47,7 +52,12 @@ printed:
    32 times, with the same checks of the step-0 loss and first update,
    its peak memory and a profile of one step. 5c: llama-micro (fp32, 8
    query heads over 4 KV heads) on the card against the CPU: logits,
-   first gradients and 3 Adafactor steps.
+   first gradients and 3 Adafactor steps. 5d: phase 5's recipe through the
+   1-rank mesh, under the JAX package's single-chip rules (all None,
+   bench.py) and under ``tp_fsdp_rules()``: 2 warm-up and 4 timed steps
+   each, (48, 24, 24) launches a step, each step's loss and the first
+   update held to phase 5's, ms per step, MFU and peak memory beside
+   phase 5's, and a profile of one step.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b"); the last line is the result.
@@ -162,6 +172,21 @@ LLAMA_LOSS0, LLAMA_LOSS0_TOL = 12.58, 0.3
 # flash to it by the same bound, so a wrong mask, scale or KV head, which
 # moves flash's logits by O(1) while dot stays put, does not pass.
 LLAMA_FLASH_VS_DOT_TOL = 1.0
+# Phases 4c and 5d: the JAX package's single-chip path on a 1-rank mesh.
+MESH_WARMUP, MESH_STEPS = 2, 4
+# 4c: llama3-8b's logits on the mesh against 4b's (bf16 |logit| up to 8,
+# where a bf16 ulp is 2^-4): one rank runs the same ops in the same order,
+# so they are expected bit-equal; one ulp at the top of the range is the
+# most a changed rounding of the same forward could move them, and a wrong
+# head block or vocab offset moves them by O(1).
+MESH_LOGITS_TOL = 0.0625
+# 5d: each step's loss on the mesh against phase 5's same step (same
+# weights, batch and seed). One rank runs the same ops, plus collectives
+# over one rank that copy exactly, so they are expected bit-equal; the
+# bound is fp32 summation order (tests/test_torch_train_step.py's
+# STEP_RTOL), where a wrong mask count, vocab offset or gradient scale
+# moves the loss by 1e-3 or more within the steps.
+MESH_LOSS_RTOL = 1e-5
 NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
@@ -210,6 +235,12 @@ def phase_environment(root=HERE):
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    import inspect
+
+    from torch.distributed.fsdp import fully_shard
+    check("shard_placement_fn" in inspect.signature(fully_shard).parameters,
+          f"torch {torch.__version__}: fully_shard takes no "
+          f"shard_placement_fn")
     print(f"device 0: {name}; device_count {torch.cuda.device_count()}")
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
@@ -600,7 +631,7 @@ def _decode_engine(torch, model, serve):
 def phase_serving(torch):
     from ray_tpu_torch.models import gpt
     return _serve(torch, gpt, gpt.config(SERVE_PRESET, attn_impl="flash"),
-                  SERVE_PRESET, FLASH_VS_DOT_TOL)
+                  SERVE_PRESET, FLASH_VS_DOT_TOL)[0]
 
 
 def phase_llama_serving(torch):
@@ -611,12 +642,80 @@ def phase_llama_serving(torch):
                   LLAMA_PRESET, LLAMA_FLASH_VS_DOT_TOL)
 
 
+def _all_rules():
+    """bench.py's single-chip rules: nothing sharded, the batch whole."""
+    from ray_tpu_torch.parallel import ShardingRules
+    return ShardingRules(batch=None, embed=None, heads=None, kv_heads=None,
+                         mlp=None, vocab=None)
+
+
+def _check_placed(model, rules_name):
+    """The model went through shard_model: FSDP2 modules whose parameters
+    are DTensors on the (dp, fsdp, tp) mesh."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+    params = dict(model.named_parameters())
+    check(isinstance(model, FSDPModule)
+          and all(isinstance(b, FSDPModule) for b in model.blocks)
+          and all(isinstance(p, DTensor) for p in params.values()),
+          f"{rules_name}: the model is not placed by FSDP2 and DTensor")
+    wq = params["blocks.0.wq"]
+    print(f"mesh: {rules_name}: blocks.0.wq {tuple(wq.shape)} on "
+          f"{wq.device_mesh.mesh_dim_names} as {wq.placements}")
+
+
+def phase_llama_mesh_forward(torch, mesh, buf, want):
+    """llama3-8b from 4b's seed, placed on the 1-rank mesh by
+    tp_fsdp_rules(), runs forward on 4b's last buffer: K1 once per layer,
+    logits against 4b's. Returns the K1 launches."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import tp_fsdp_rules
+
+    cfg = llama.config(LLAMA_PRESET, attn_impl="flash")
+    t0 = time.perf_counter()
+    model = llama.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                       DEVICE, mesh=mesh, rules=tp_fsdp_rules())
+    torch.cuda.synchronize()
+    print(f"mesh: {LLAMA_PRESET} initialised on the mesh in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _check_placed(model, "tp_fsdp_rules()")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = model(buf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, dq_n, dkv_n = _counts(fa)
+    check(launches == cfg.n_layers and dq_n == dkv_n == 0,
+          f"the mesh forward launched (K1, K2, K3) {(launches, dq_n, dkv_n)}"
+          f", expected ({cfg.n_layers}, 0, 0)")
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"logits {tuple(got.shape)} {got.dtype}, 4b's "
+          f"{tuple(want.shape)} {want.dtype}")
+    gap = float((got.float() - want.float()).abs().max())
+    print(f"mesh: {LLAMA_PRESET} forward of {tuple(buf.shape)} on the mesh "
+          f"in {wall * 1e3:.2f} ms (first call), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 "
+          f"launches {launches}; max|dlogit| against 4b {gap:.6f} (bound "
+          f"{MESH_LOGITS_TOL}), bit-equal {torch.equal(got, want)}")
+    check(bool(torch.isfinite(got).all()), "non-finite mesh logits")
+    check(gap <= MESH_LOGITS_TOL,
+          "the mesh forward's logits disagree with 4b's")
+    del model, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
     """8 requests through the port's ContinuousBatcher over ``module``'s
     model at ``cfg`` (random weights from a seeded generator, flash
     attention); then the last step's logits under flash and dot attention,
     and a profile of one step. Frees the model and returns the K1 launches
-    of the served run."""
+    of the served run, the last step's buffer and its flash logits."""
     from dataclasses import replace
 
     from ray_tpu_torch import serve
@@ -680,7 +779,8 @@ def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
     # The last step's buffer under flash and under dot attention, and under
     # dot attention in fp32 (parameters are fp32; TF32 is off).
     with torch.inference_mode():
-        flash = model(state["buf"]).float()
+        flash_raw = model(state["buf"])
+        flash = flash_raw.float()
         model.cfg = replace(cfg, attn_impl="dot")
         dot = model(state["buf"]).float()
         model.cfg = replace(cfg, attn_impl="dot", dtype=torch.float32)
@@ -700,12 +800,13 @@ def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
           "flash logits disagree with the fp32 forward")
     del flash, dot, fp32
     _profile_step(torch, model, state["buf"])
+    buf = state["buf"].clone()
     # The engine's parked decode task and the engine refer to each other:
     # collect the cycle, so the model's memory is free for later phases.
     del model, state, engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, buf, flash_raw
 
 
 def _profile_step(torch, model, buf):
@@ -816,7 +917,7 @@ def phase_training(torch):
           f"1e-4; state initialised in {time.perf_counter() - t0:.2f} s")
 
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    losses, step_s, per_step = [], [], []
+    losses, step_s, per_step, prints = [], [], [], []
     _zero_counts(fa)
     for i in range(n_steps):
         if i == TRAIN_WARMUP:
@@ -833,6 +934,8 @@ def phase_training(torch):
                        for p, b in zip(model.parameters(), before))
             check(same, "the first update changed a parameter")
             del before
+        if i < MESH_WARMUP + MESH_STEPS:  # phase 5d's reference
+            prints.append(_fingerprint(torch, dict(model.named_parameters())))
     counts = _counts(fa)
     peak_full = torch.cuda.max_memory_allocated()
 
@@ -908,7 +1011,109 @@ def phase_training(torch):
     del state, model, step, sel_step, metrics, batch
     torch.cuda.empty_cache()
     return counts, {"ms_per_step": mean_s * 1e3, "tokens_per_s": tokens_s,
-                    "mfu": mfu, "peak_gib": peak_full / 2**30}
+                    "mfu": mfu, "peak_gib": peak_full / 2**30,
+                    "losses": losses, "fingerprints": prints}
+
+
+def phase_mesh_training(torch, mesh, ref):
+    """Phase 5's recipe through prepare_mesh's 1-rank mesh, under the JAX
+    package's single-chip rules (all None) and under tp_fsdp_rules():
+    init_train_state and make_train_step with the mesh, launches per step,
+    each step's loss and the first update against phase 5's (``ref``), and
+    times beside phase 5's. Returns the (K1, K2, K3) launches."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import tp_fsdp_rules
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt.config(TRAIN_PRESET, **TRAIN_OVERRIDES)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, DEVICE)
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    total = [0, 0, 0]
+    for rules_name, rules in (("rules all None (bench.py)", _all_rules()),
+                              ("tp_fsdp_rules()", tp_fsdp_rules())):
+        base = torch.cuda.memory_allocated()
+        opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+        t0 = time.perf_counter()
+        state = ts.init_train_state(cfg, mesh, rules, opt, seed=0,
+                                    device=DEVICE)
+        step = ts.make_train_step(cfg, mesh, rules, opt)
+        torch.cuda.synchronize()
+        state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+        print(f"mesh: {TRAIN_PRESET} under {rules_name}: state initialised "
+              f"in {time.perf_counter() - t0:.2f} s, {state_gib:.2f} GiB "
+              f"(above the {base / 2**30:.2f} GiB held before it)")
+        model = state["params"]
+        _check_placed(model, rules_name)
+        losses, step_s, per_step, diffs = [], [], [], []
+        _zero_counts(fa)
+        for i in range(MESH_WARMUP + MESH_STEPS):
+            if i == MESH_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            counts0 = _counts(fa)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+            losses.append(float(metrics["loss"]))
+            mine = _fingerprint(torch, {n: p.to_local() for n, p in
+                                        model.named_parameters()})
+            diffs.append(float((mine - ref["fingerprints"][i]).abs().max()))
+            if i == 0:
+                check(torch.equal(mine, ref["fingerprints"][0]),
+                      f"{rules_name}: after the first step a parameter's "
+                      f"fp64 sum or norm differs from phase 5's")
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _counts(fa)
+        total = [t + c for t, c in zip(total, counts)]
+        check(all(c == per_layer for c in per_step),
+              f"{rules_name}: launches per step (K1, K2, K3) {per_step}, "
+              f"expected {per_layer}")
+        rel = [abs(a / b - 1) for a, b in zip(losses, ref["losses"])]
+        check(np.isfinite(losses).all() and max(rel) <= MESH_LOSS_RTOL,
+              f"{rules_name}: losses {losses} against phase 5's "
+              f"{ref['losses'][:len(losses)]}")
+        timed = step_s[MESH_WARMUP:]
+        mean_s = statistics.mean(timed)
+        tokens_s = TRAIN_BATCH * TRAIN_SEQ / mean_s
+        mfu = tokens_s * gpt.flops_per_token(cfg) / PEAK_FLOPS["bfloat16"]
+        print(f"mesh: {rules_name}: losses {losses}; max rel dloss against "
+              f"phase 5's steps {max(rel):.3e} (bound {MESH_LOSS_RTOL:.0e}); "
+              f"first update left every parameter's fp64 sum and norm "
+              f"equal to phase 5's; max |d(sum, norm)| per step "
+              f"{[f'{d:.3e}' for d in diffs]}")
+        print(f"mesh: {rules_name}: {MESH_STEPS} timed steps "
+              f"{[round(t * 1e3, 2) for t in timed]} ms; mean "
+              f"{mean_s * 1e3:.2f} ms/step (phase 5: "
+              f"{ref['ms_per_step']:.2f}), {tokens_s:.1f} tokens/s "
+              f"(phase 5: {ref['tokens_per_s']:.1f}), MFU {mfu:.2%} (phase "
+              f"5: {ref['mfu']:.2%}), peak memory {peak / 2**30:.2f} GiB "
+              f"(phase 5: {ref['peak_gib']:.2f}), "
+              f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB of "
+              f"state held between steps ({state_gib:.2f} after init); "
+              f"launches (K1, K2, K3) {counts} = {per_layer} per step")
+        # Memory of the loss and its gradients alone, as phase 5 prints it:
+        # FSDP2 gathers and reduces them; the step's optimizer does not run.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        loss, _ = gpt.loss_fn(model, batch["tokens"], batch["targets"])
+        loss.backward()
+        torch.cuda.synchronize()
+        print(f"mesh: {rules_name}: loss and gradients peak at "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+              f"above the {(held - base) / 2**30:.2f} GiB of state")
+        for p in model.parameters():
+            p.grad = None
+        del loss
+        _profile(torch, lambda: step(state, batch),
+                 f"one training step of {TRAIN_PRESET} on the mesh, "
+                 f"{rules_name}", 12, expect=WGMMA_KERNELS)
+        del state, model, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return tuple(total)
 
 
 def phase_small_training(torch):
@@ -991,11 +1196,13 @@ def _llama_step(torch, llama, model, params, opt, opt_state, batch):
 
 def _fingerprint(torch, params):
     """Each tensor's fp64 sum and L2 norm, on the card (a copy of 8 B fp32
-    parameters would not fit beside the step)."""
-    return torch.stack([torch.stack((
-        torch.sum(p, dtype=torch.float64),
-        torch.linalg.vector_norm(p, dtype=torch.float64)))
-        for p in params.values()]).cpu()
+    parameters would not fit beside the step); no autograd graph, which
+    would hold the parameters for as long as the fingerprint lives."""
+    with torch.no_grad():
+        return torch.stack([torch.stack((
+            torch.sum(p, dtype=torch.float64),
+            torch.linalg.vector_norm(p, dtype=torch.float64)))
+            for p in params.values()]).cpu()
 
 
 def phase_llama_training(torch):
@@ -1165,33 +1372,57 @@ def main():
     check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernel-times ROOT]")
     t_start = time.perf_counter()
     torch, name = phase_environment()
-    _timed("2", phase_build)
-    k1 = _timed("3 (K1)", phase_kernel_check, torch)
-    k2, k3 = _timed("3 (K2, K3)", phase_backward_check, torch)
-    k1_serve = _timed("4", phase_serving, torch)
-    _timed("4 (gpt-micro)", phase_small_reference, torch)
-    k1_llama_serve = _timed("4b", phase_llama_serving, torch)
-    (k1_train, k2_train, k3_train), _ = _timed("5", phase_training, torch)
-    _timed("5 (gpt-micro)", phase_small_training, torch)
-    k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
-    _timed("5c", phase_llama_small, torch)
-    src = "ray_tpu_torch/ops/csrc/"
-    ref = "ray_tpu/ops/flash_attention.py:"
-    kernels = [
-        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-         "replaces": ref + "37",
-         "launches": k1_serve + k1_llama_serve + k1_train + k1_llama, **k1},
-        {"name": "flash_bwd_dq", "route": "cuda",
-         "source": src + "flash_bwd.cu", "replaces": ref + "88",
-         "launches": k2_train + k2_llama, **k2},
-        {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": src + "flash_bwd.cu", "replaces": ref + "131",
-         "launches": k3_train + k3_llama, **k3}]
+    try:
+        kernels = _main_phases(torch)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def _main_phases(torch):
+    """Phases 2-5d; returns the kernels line's rows."""
+    from ray_tpu_torch.parallel import MeshConfig
+    from ray_tpu_torch.parallel.mesh import mesh_sizes
+    from ray_tpu_torch.train.torch import prepare_mesh
+
+    _timed("2", phase_build)
+    k1 = _timed("3 (K1)", phase_kernel_check, torch)
+    k2, k3 = _timed("3 (K2, K3)", phase_backward_check, torch)
+    k1_serve = _timed("4", phase_serving, torch)
+    _timed("4 (gpt-micro)", phase_small_reference, torch)
+    k1_llama_serve, buf, logits = _timed("4b", phase_llama_serving, torch)
+    # A 1-rank NCCL process group and mesh, as a train worker builds them.
+    mesh = prepare_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1))
+    print(f"mesh: {torch.distributed.get_backend()} group of "
+          f"{torch.distributed.get_world_size()}, mesh "
+          f"{mesh_sizes(mesh)}")
+    k1_llama_mesh = _timed("4c", phase_llama_mesh_forward, torch, mesh, buf,
+                           logits)
+    del buf, logits
+    (k1_train, k2_train, k3_train), ref = _timed("5", phase_training, torch)
+    k1_mesh, k2_mesh, k3_mesh = _timed("5d", phase_mesh_training, torch,
+                                       mesh, ref)
+    _timed("5 (gpt-micro)", phase_small_training, torch)
+    k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
+    _timed("5c", phase_llama_small, torch)
+    src = "ray_tpu_torch/ops/csrc/"
+    ref = "ray_tpu/ops/flash_attention.py:"
+    return [
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": ref + "37",
+         "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
+                      + k1_mesh + k1_llama), **k1},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": src + "flash_bwd.cu", "replaces": ref + "88",
+         "launches": k2_train + k2_mesh + k2_llama, **k2},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": src + "flash_bwd.cu", "replaces": ref + "131",
+         "launches": k3_train + k3_mesh + k3_llama, **k3}]
 
 
 if __name__ == "__main__":

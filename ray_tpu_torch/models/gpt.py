@@ -40,6 +40,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import _flash_forward, flash_attention
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             TPShard, all_reduce, from_tp,
+                                             gather_tp, local, local_block,
+                                             shard_model, to_tp, tp_local)
 
 
 @dataclass(frozen=True)
@@ -195,7 +199,20 @@ def _dot_attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _check_local_heads(q, k, cfg) -> None:
+    """On a tp mesh q and k hold this rank's heads; the grouping of query
+    heads over KV heads must stay the model's."""
+    if q.shape[2] * cfg.kv_heads != k.shape[2] * cfg.n_heads:
+        raise ValueError(
+            f"{q.shape[2]} local query heads over {k.shape[2]} KV heads "
+            f"break the model's grouping of {cfg.n_heads} over "
+            f"{cfg.kv_heads}: shard heads and kv_heads over one axis that "
+            f"divides {cfg.kv_heads}")
+
+
 def _attention(q, k, v, cfg: GPTConfig):
+    """Causal attention on plain tensors (on a mesh, this rank's heads)."""
+    _check_local_heads(q, k, cfg)
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
@@ -349,31 +366,44 @@ class Block(nn.Module):
             self.ln2_bias = _empty((d,), cfg, device)
 
     def forward(self, x, positions, cfg: GPTConfig):
-        """x: [B, S, d] → [B, S, d]."""
+        """x: [B, S, d] → [B, S, d]. On a tp mesh the heads and the MLP
+        columns of this rank's blocks; the residual stream is whole."""
         dt = cfg.dtype
         B, S, d = x.shape
-        h = _layernorm(x, self.ln1_scale, self.ln1_bias, cfg.layernorm_eps)
+        h = _layernorm(x, local(self.ln1_scale), local(self.ln1_bias),
+                       cfg.layernorm_eps)
+        wq, heads = tp_local(self.wq)
+        w_in, mlp = tp_local(self.w_in)
+        h_attn = to_tp(h, heads)
 
         def proj(w):  # [d, heads, hd] → [B, S, heads, hd]
-            return _matmul(h, w.to(dt).reshape(d, -1)).view(
+            w = local(w)
+            return _matmul(h_attn, w.to(dt).reshape(d, -1)).view(
                 B, S, w.shape[1], w.shape[2])
 
-        q = _rotary(proj(self.wq), positions, cfg.rotary_dim)
+        q = _rotary(proj(wq), positions, cfg.rotary_dim)
         k = _rotary(proj(self.wk), positions, cfg.rotary_dim)
         v = proj(self.wv)
         attn = _attention(q, k, v, cfg)
-        attn_out = _matmul(attn.reshape(B, S, -1),
-                           self.wo.to(dt).reshape(-1, d))
+        attn_out = from_tp(_matmul(attn.reshape(B, S, -1),
+                                   local(self.wo).to(dt).reshape(-1, d)),
+                           heads)
 
         if cfg.parallel_block:
-            mlp_in = h  # GPT-J: shared LN feeds both branches
+            # GPT-J: the shared LN feeds both branches; through one entry
+            # into the tp region when both are split, so that its gradient
+            # sums in the order it does without a mesh.
+            mlp_in = (h_attn if (heads is None) == (mlp is None)
+                      else to_tp(h, mlp))
         else:
             x = x + attn_out
-            mlp_in = _layernorm(x, self.ln2_scale, self.ln2_bias,
-                                cfg.layernorm_eps)
-        ff = F.gelu(_matmul(mlp_in, self.w_in.to(dt)) + self.b_in.to(dt),
-                    approximate="tanh")
-        mlp_out = _matmul(ff, self.w_out.to(dt)) + self.b_out.to(dt)
+            mlp_in = to_tp(_layernorm(x, local(self.ln2_scale),
+                                      local(self.ln2_bias),
+                                      cfg.layernorm_eps), mlp)
+        ff = F.gelu(_matmul(mlp_in, w_in.to(dt))
+                    + local(self.b_in).to(dt), approximate="tanh")
+        mlp_out = (from_tp(_matmul(ff, local(self.w_out).to(dt)), mlp)
+                   + local(self.b_out).to(dt))
         if cfg.parallel_block:
             return x + attn_out + mlp_out
         return x + mlp_out
@@ -403,50 +433,124 @@ class GPT(nn.Module):
             self.lm_head_bias = _empty((v,), cfg, dev)
 
     def hidden_states(self, tokens, positions=None):
-        """tokens [B, S] int → (final-layernormed hidden [B, S, d], aux)."""
+        """tokens [B, S] int → (final-layernormed hidden [B, S, d], aux).
+        :func:`loss_fn` enters the model here; on a mesh it is an FSDP
+        forward method (``shard_model``), so the root's parameters are
+        gathered around it."""
+        return self._hidden_states(tokens, positions)
+
+    def _hidden_states(self, tokens, positions=None):
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-        x = F.embedding(tokens, self.wte).to(self.cfg.dtype)
+        x = _embed(tokens, self.wte).to(self.cfg.dtype)
         for block in self.blocks:
             x = _remat_block(block, self.cfg)(x, positions, self.cfg)
-        x = _layernorm(x, self.lnf_scale, self.lnf_bias,
+        x = _layernorm(x, local(self.lnf_scale), local(self.lnf_bias),
                        self.cfg.layernorm_eps)
         # The MoE load-balancing term; 0 for the dense models served here.
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _head(self, x):
+    def _head(self, x) -> Tuple[torch.Tensor, Optional[TPShard]]:
+        """(logits: on a mesh this rank's block of the vocab, how the
+        vocab is split over tp or None)."""
         dt = self.cfg.dtype
         if self.cfg.tie_embeddings:
-            return x @ self.wte.to(dt).T
-        return x @ self.lm_head.to(dt) + self.lm_head_bias.to(dt)
+            w, vocab = tp_local(self.wte)
+            return to_tp(x, vocab) @ w.to(dt).T, vocab
+        w, vocab = tp_local(self.lm_head)
+        return (to_tp(x, vocab) @ w.to(dt)
+                + local(self.lm_head_bias).to(dt)), vocab
 
     def forward_with_aux(self, tokens, positions=None):
         """tokens [B, S] → (logits [B, S, vocab] in cfg.dtype, aux)."""
-        x, aux = self.hidden_states(tokens, positions)
-        return self._head(x), aux
+        x, aux = self._hidden_states(tokens, positions)
+        logits, vocab = self._head(x)
+        return gather_tp(logits, vocab), aux
 
     def forward(self, tokens, positions=None):
         """tokens [B, S] int → logits [B, S, vocab] (compute dtype)."""
         return self.forward_with_aux(tokens, positions)[0]
 
 
+def _embed(tokens, wte):
+    """``F.embedding(tokens, wte)``; on a vocab split over tp, this rank's
+    rows (zero for ids outside its block) summed over the group."""
+    table, vocab = tp_local(wte)
+    if vocab is None:
+        return F.embedding(tokens, table)
+    n = table.shape[0]
+    ids = tokens - vocab.index * n
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(ids.clamp(0, n - 1), table)
+    return from_tp(rows.masked_fill(~inside[..., None], 0.0), vocab)
+
+
 # -- loss ---------------------------------------------------------------
 
-def _ce_stats(logits, targets, mask, z_loss: float):
+def _ce_stats(logits, targets, mask, z_loss: float,
+              vocab: Optional[TPShard] = None):
     """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
-    hits by first-max argmax, as ``jnp.argmax``."""
+    hits by first-max argmax, as ``jnp.argmax``. With ``vocab`` the slab
+    is this rank's block of a vocab split over tp."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        hits = logits.argmax(-1) == targets
+    else:
+        logz, tgt, hits = _vocab_parallel_stats(logits, targets, vocab)
     nll = logz - tgt
     if z_loss:
         nll = nll + z_loss * logz ** 2
-    hits = (logits.argmax(-1) == targets).float()
-    return (nll * mask).sum(), (hits * mask).sum()
+    return (nll * mask).sum(), (hits.float() * mask).sum()
 
 
-def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0
+def _vocab_parallel_stats(logits, targets, vocab: TPShard):
+    """(logsumexp, target logit, first-max argmax == target) over the
+    whole vocab from this rank's block ``[start, start + n)`` of the
+    logits: explicit max and sum reductions over tp, no gathered logits.
+    On one rank each is the plain formula's value exactly."""
+    n = logits.shape[-1]
+    start = vocab.index * n
+    lse = torch.logsumexp(logits, dim=-1)
+    top = all_reduce(lse, vocab.group, torch.distributed.ReduceOp.MAX)
+    logz = top + torch.log(from_tp(torch.exp(lse - top), vocab))
+    ids = targets.long() - start
+    inside = (ids >= 0) & (ids < n)
+    tgt = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = from_tp(tgt.masked_fill(~inside, 0.0), vocab)
+    arg = logits.detach().argmax(-1)
+    best = torch.gather(logits.detach(), -1, arg[..., None])[..., 0]
+    top_best = all_reduce(best, vocab.group, torch.distributed.ReduceOp.MAX)
+    first = torch.where(best == top_best, arg + start, n * vocab.size)
+    first = all_reduce(first, vocab.group, torch.distributed.ReduceOp.MIN)
+    return logz, tgt, first == targets
+
+
+def _batch_sum(x, groups):
+    """``x`` summed over the process groups the batch is split over."""
+    for group in groups:
+        x = all_reduce(x, group)
+    return x
+
+
+def _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups):
+    """(this rank's Σ nll over the global count of masked tokens, the
+    global {"loss", "accuracy", "perplexity"}). Summed over the ranks of
+    ``batch_groups``, the first is the global loss, so the gradients are
+    summed over them, never averaged."""
+    denom = torch.clamp_min(_batch_sum(mask32.sum(), batch_groups), 1.0)
+    ce = nll_sum / denom
+    loss = _batch_sum(nll_sum.detach(), batch_groups) / denom
+    acc = _batch_sum(hit_sum.detach(), batch_groups) / denom
+    # Perplexity from the cross-entropy alone, as in the JAX package.
+    return ce, {"loss": loss, "accuracy": acc,
+                "perplexity": torch.exp(torch.clamp_max(loss, 20.0))}
+
+
+def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
+            batch_groups=()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in fp32 (+ optional z-loss) → (loss,
     {"loss", "accuracy", "perplexity"}), all 0-d tensors on the model's
@@ -455,7 +559,12 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0
     With ``cfg.loss_chunk > 0`` the head matmul and fp32 softmax run per
     chunk of tokens under a checkpoint, so one chunk's fp32 logits exist
     at a time (in the backward too); a chunk that does not divide B·S is
-    lowered to its largest divisor, as in the JAX package."""
+    lowered to its largest divisor, as in the JAX package.
+
+    ``batch_groups`` are the process groups the batch is split over (on a
+    mesh, those of its batch axes): the loss divides this rank's sum by
+    the global mask count, as the JAX package's ``mask.sum()`` over the
+    global batch, and the metrics are the global ones."""
     cfg = model.cfg
     x, _ = model.hidden_states(tokens)
     B, S = tokens.shape
@@ -463,10 +572,10 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0
         mask32 = torch.ones((B, S), dtype=torch.float32, device=x.device)
     else:
         mask32 = mask.float()
-    denom = torch.clamp_min(mask32.sum(), 1.0)
 
     def chunk_stats(x_c, t_c, m_c):
-        return _ce_stats(model._head(x_c), t_c, m_c, z_loss)
+        logits, vocab = model._head(x_c)
+        return _ce_stats(logits, t_c, m_c, z_loss, vocab)
 
     T = B * S
     chunk = cfg.loss_chunk
@@ -488,39 +597,104 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0
             hit_sum = hit_sum + hit_c
     else:
         nll_sum, hit_sum = chunk_stats(x, targets, mask32)
-
-    ce = nll_sum / denom
-    acc = hit_sum.detach() / denom
-    # Perplexity from the cross-entropy alone, as in the JAX package.
-    return ce, {"loss": ce.detach(), "accuracy": acc,
-                "perplexity": torch.exp(torch.clamp_max(ce.detach(), 20.0))}
+    return _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups)
 
 
 # -- parameters ---------------------------------------------------------
 
+def param_specs(cfg: GPTConfig, rules: ShardingRules) -> Dict[str, Any]:
+    """PartitionSpecs of the model's parameters, after
+    ``ray_tpu/models/gpt.py``'s ``param_specs``: the root's tensors by
+    name, and under ``"layers"`` each layer's tensors by leaf name, with
+    the JAX leaf's spec less its leading ``layers`` entry (the port's
+    layers are a ``ModuleList``, not a stacked axis)."""
+    if rules.layers is not None:
+        raise NotImplementedError(
+            f"rules.layers={rules.layers!r} (pipeline stages) waits for "
+            f"ROADMAP.md queue 1, item 8")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "MoE GPT configs (n_experts > 0) are a later slice of the port "
+            "(ROADMAP.md queue 1, item 8)")
+    r = rules
+    layers = {
+        "ln1_scale": r.spec("embed"),
+        "ln1_bias": r.spec("embed"),
+        "wq": r.spec("embed", "heads", "head_dim"),
+        "wk": r.spec("embed", "kv_heads", "head_dim"),
+        "wv": r.spec("embed", "kv_heads", "head_dim"),
+        "wo": r.spec("heads", "head_dim", "embed"),
+        "b_out": r.spec("embed"),
+        "w_in": r.spec("embed", "mlp"),
+        "b_in": r.spec("mlp"),
+        "w_out": r.spec("mlp", "embed"),
+    }
+    if not cfg.parallel_block:
+        layers["ln2_scale"] = r.spec("embed")
+        layers["ln2_bias"] = r.spec("embed")
+    specs = {
+        "wte": r.spec("vocab", "embed"),
+        "layers": layers,
+        "lnf_scale": r.spec("embed"),
+        "lnf_bias": r.spec("embed"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = r.spec("embed", "vocab")
+        specs["lm_head_bias"] = r.spec("vocab")
+    return specs
+
+
+def batch_spec(rules: ShardingRules) -> PartitionSpec:
+    return rules.spec("batch", "sequence")
+
+
+def _placed(model_cls, cfg, device, mesh, specs) -> nn.Module:
+    """``model_cls(cfg)`` with uninitialised parameters: on ``device``,
+    or, with a mesh, allocated as placed there by ``specs``."""
+    if mesh is None:
+        return model_cls(cfg, device)
+    model = shard_model(model_cls(cfg, "meta"), mesh, specs)
+    return model.to_empty(device=resolve_device(device))
+
+
+def _draw(model: nn.Module, generator: torch.Generator,
+          stds: Dict[str, float], fill) -> nn.Module:
+    """Each parameter whose leaf name is in ``stds`` drawn from N(0, std²)
+    by ``generator`` whole, in ``named_parameters`` order, of which this
+    rank keeps its block (all of it off a mesh); every other set to
+    ``fill(leaf)``. So a mesh gives the same global values as one device
+    with the same seed, and holds one whole tensor at a time."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in stds:
+                draw = torch.randn(p.shape, generator=generator,
+                                   dtype=torch.float32, device=p.device)
+                local(p).copy_(local_block(draw.mul_(stds[leaf]), p))
+            else:
+                local(p).fill_(fill(leaf))
+    return model
+
+
 def init(cfg: GPTConfig, generator: torch.Generator,
-         device: DeviceLike = None) -> GPT:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> GPT:
     """A model with the JAX package's init distributions (GPT-2-style
     scaled normal: std 0.02, output projections 0.02/sqrt(2L); LayerNorm
     scales 1, biases 0), drawn from ``generator``, which must live on
-    ``device``. The draws differ from ``jax.random``'s for the same seed."""
-    model = GPT(cfg, device)
+    ``device``. The draws differ from ``jax.random``'s for the same seed.
+    With ``mesh`` the model is placed there by :func:`param_specs` of
+    ``rules`` (default ``ShardingRules()``) and holds the same global
+    values."""
+    specs = None if mesh is None else param_specs(
+        cfg, rules or ShardingRules())
+    model = _placed(GPT, cfg, device, mesh, specs)
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
               "w_in": std, "wo": out_std, "w_out": out_std}
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in normal:
-                draw = torch.randn(p.shape, generator=generator,
-                                   dtype=torch.float32, device=p.device)
-                p.copy_(draw * normal[leaf])
-            elif leaf.endswith("_scale"):
-                p.fill_(1.0)
-            else:
-                p.zero_()
-    return model
+    return _draw(model, generator, normal,
+                 lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
 
 
 def _assign(param: nn.Parameter, arr, name: str) -> None:
@@ -585,6 +759,6 @@ def to_jax_params(model: nn.Module) -> Dict[str, Any]:
     return params
 
 
-__all__ = ["GPT", "GPTConfig", "PRESETS", "Block", "config",
+__all__ = ["GPT", "GPTConfig", "PRESETS", "Block", "batch_spec", "config",
            "flops_per_token", "from_jax_params", "init", "leaf_groups",
-           "loss_fn", "to_jax_params"]
+           "loss_fn", "param_specs", "to_jax_params"]

@@ -25,6 +25,13 @@ are recorded, saving only its input, as ``jax.checkpoint`` with
 ``nothing_saveable`` does. :func:`loss_fn` is the JAX package's unchunked
 next-token cross-entropy. Ring and Ulysses attention belong to a later
 slice of the port.
+
+On a mesh (:func:`init` with ``mesh``, or ``sharding.shard_model`` by
+:func:`param_specs`) each block computes on its local ``tp`` blocks of
+the parameters as ``models/gpt.py`` does: query and KV heads split over
+``tp`` together (``tp`` must divide ``n_kv_heads``, so each rank keeps the
+model's grouping), the FFN's columns, and the vocab of the embedding and
+the head; ``forward`` gathers the logits' vocab.
 """
 
 from __future__ import annotations
@@ -40,10 +47,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models.gpt import (_ce_stats, _dot_attention, _empty,
-                                      _load_jax_params, leaf_groups,
-                                      to_jax_params)
+from ray_tpu_torch.models.gpt import (_ce_stats, _check_local_heads,
+                                      _dot_attention, _draw, _embed, _empty,
+                                      _load_jax_params, _loss_and_metrics,
+                                      _placed, leaf_groups, to_jax_params)
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             TPShard, from_tp, gather_tp,
+                                             local, to_tp, tp_local)
 
 
 @dataclass(frozen=True)
@@ -136,6 +147,8 @@ def _rotary(x, positions, theta):
 
 
 def _attention(q, k, v, cfg: LlamaConfig):
+    """Causal attention on plain tensors (on a mesh, this rank's heads)."""
+    _check_local_heads(q, k, cfg)
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
@@ -169,23 +182,29 @@ class Block(nn.Module):
         self.w_down = _empty((f, d), cfg, device)
 
     def forward(self, x, positions, cfg: LlamaConfig):
-        """x: [B, S, d] in cfg.dtype → [B, S, d]."""
+        """x: [B, S, d] in cfg.dtype → [B, S, d]. On a tp mesh the heads
+        and the FFN columns of this rank's blocks; the residual stream is
+        whole."""
         dt = cfg.dtype
         B, S, d = x.shape
-        h = _rmsnorm(x, self.attn_norm, cfg.rms_eps)
+        wq, heads = tp_local(self.wq)
+        h = to_tp(_rmsnorm(x, local(self.attn_norm), cfg.rms_eps), heads)
 
         def proj(w):  # [d, heads, hd] → [B, S, heads, hd]
+            w = local(w)
             return (h @ w.to(dt).reshape(d, -1)).view(B, S, w.shape[1],
                                                       w.shape[2])
 
-        q = _rotary(proj(self.wq), positions, cfg.rope_theta)
+        q = _rotary(proj(wq), positions, cfg.rope_theta)
         k = _rotary(proj(self.wk), positions, cfg.rope_theta)
         attn = _attention(q, k, proj(self.wv), cfg)
-        x = x + attn.reshape(B, S, -1) @ self.wo.to(dt).reshape(-1, d)
+        x = x + from_tp(attn.reshape(B, S, -1)
+                        @ local(self.wo).to(dt).reshape(-1, d), heads)
 
-        h = _rmsnorm(x, self.ffn_norm, cfg.rms_eps)
-        ff = F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))
-        return x + ff @ self.w_down.to(dt)
+        w_gate, mlp = tp_local(self.w_gate)
+        h = to_tp(_rmsnorm(x, local(self.ffn_norm), cfg.rms_eps), mlp)
+        ff = F.silu(h @ w_gate.to(dt)) * (h @ local(self.w_up).to(dt))
+        return x + from_tp(ff @ local(self.w_down).to(dt), mlp)
 
 
 class Llama(nn.Module):
@@ -205,67 +224,112 @@ class Llama(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _empty((d, v), cfg, dev)
 
-    def forward(self, tokens, positions=None):
-        """tokens [B, S] int → logits [B, S, vocab] (compute dtype)."""
+    def hidden_states(self, tokens, positions=None):
+        """tokens [B, S] int → final-normed hidden [B, S, d].
+        :func:`loss_fn` enters the model here; on a mesh it is an FSDP
+        forward method, as GPT's."""
+        return self._hidden_states(tokens, positions)
+
+    def _hidden_states(self, tokens, positions=None):
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-        x = F.embedding(tokens, self.wte).to(cfg.dtype)
+        x = _embed(tokens, self.wte).to(cfg.dtype)
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
                 block = partial(checkpoint, block, use_reentrant=False)
             x = block(x, positions, cfg)
-        x = _rmsnorm(x, self.final_norm, cfg.rms_eps)
-        if cfg.tie_embeddings:
-            return x @ self.wte.to(cfg.dtype).T
-        return x @ self.lm_head.to(cfg.dtype)
+        return _rmsnorm(x, local(self.final_norm), cfg.rms_eps)
+
+    def _head(self, x) -> Tuple[torch.Tensor, Optional[TPShard]]:
+        """(logits: on a mesh this rank's block of the vocab, how the
+        vocab is split over tp or None)."""
+        dt = self.cfg.dtype
+        if self.cfg.tie_embeddings:
+            w, vocab = tp_local(self.wte)
+            return to_tp(x, vocab) @ w.to(dt).T, vocab
+        w, vocab = tp_local(self.lm_head)
+        return to_tp(x, vocab) @ w.to(dt), vocab
+
+    def forward(self, tokens, positions=None):
+        """tokens [B, S] int → logits [B, S, vocab] (compute dtype)."""
+        logits, vocab = self._head(self._hidden_states(tokens, positions))
+        return gather_tp(logits, vocab)
 
 
 # -- loss ---------------------------------------------------------------
 
-def loss_fn(model: Llama, tokens, targets, mask=None, z_loss: float = 0.0
+def loss_fn(model: Llama, tokens, targets, mask=None, z_loss: float = 0.0,
+            batch_groups=()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in fp32 over the whole ``[B, S, vocab]``
     logits (+ optional z-loss) → (loss, {"loss", "accuracy",
     "perplexity"}), all 0-d tensors on the model's device; accuracy by
-    first-max argmax."""
-    logits = model(tokens)
+    first-max argmax. ``batch_groups`` as in ``models.gpt.loss_fn``."""
+    logits, vocab = model._head(model.hidden_states(tokens))
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=logits.device)
     mask = mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    nll_sum, hit_sum = _ce_stats(logits, targets, mask, z_loss)
-    loss = nll_sum / denom
-    return loss, {"loss": loss.detach(), "accuracy": hit_sum.detach() / denom,
-                  "perplexity": torch.exp(torch.clamp_max(loss.detach(),
-                                                          20.0))}
+    nll_sum, hit_sum = _ce_stats(logits, targets, mask, z_loss, vocab)
+    return _loss_and_metrics(nll_sum, hit_sum, mask, batch_groups)
 
 
 # -- parameters ---------------------------------------------------------
 
+def param_specs(cfg: LlamaConfig, rules: ShardingRules) -> Dict[str, Any]:
+    """PartitionSpecs of the model's parameters, after
+    ``ray_tpu/models/llama.py``'s ``param_specs``, laid out as
+    ``models.gpt.param_specs`` lays out GPT's."""
+    if rules.layers is not None:
+        raise NotImplementedError(
+            f"rules.layers={rules.layers!r} (pipeline stages) waits for "
+            f"ROADMAP.md queue 1, item 8")
+    r = rules
+    layers = {
+        "attn_norm": r.spec("embed"),
+        "wq": r.spec("embed", "heads", "head_dim"),
+        "wk": r.spec("embed", "kv_heads", "head_dim"),
+        "wv": r.spec("embed", "kv_heads", "head_dim"),
+        "wo": r.spec("heads", "head_dim", "embed"),
+        "ffn_norm": r.spec("embed"),
+        "w_gate": r.spec("embed", "mlp"),
+        "w_up": r.spec("embed", "mlp"),
+        "w_down": r.spec("mlp", "embed"),
+    }
+    specs = {
+        "wte": r.spec("vocab", "embed"),
+        "layers": layers,
+        "final_norm": r.spec("embed"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = r.spec("embed", "vocab")
+    return specs
+
+
+def batch_spec(rules: ShardingRules) -> PartitionSpec:
+    return rules.spec("batch", "sequence")
+
+
 def init(cfg: LlamaConfig, generator: torch.Generator,
-         device: DeviceLike = None) -> Llama:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> Llama:
     """A model with the JAX package's init distributions (normal, std
     0.02, ``wo`` and ``w_down`` 0.02/sqrt(2L); RMSNorm scales 1), drawn
     from ``generator``, which must live on ``device``. The draws differ
-    from ``jax.random``'s for the same seed."""
-    model = Llama(cfg, device)
+    from ``jax.random``'s for the same seed. With ``mesh`` the model is
+    placed there by :func:`param_specs` of ``rules`` (default
+    ``ShardingRules()``) and holds the same global values, as
+    ``models.gpt.init``."""
+    specs = None if mesh is None else param_specs(
+        cfg, rules or ShardingRules())
+    model = _placed(Llama, cfg, device, mesh, specs)
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
               "w_gate": std, "w_up": std, "wo": out_std, "w_down": out_std}
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in normal:
-                draw = torch.randn(p.shape, generator=generator,
-                                   dtype=torch.float32, device=p.device)
-                p.copy_(draw * normal[leaf])
-            else:  # attn_norm, ffn_norm, final_norm
-                p.fill_(1.0)
-    return model
+    return _draw(model, generator, normal, lambda leaf: 1.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: LlamaConfig,
@@ -278,6 +342,6 @@ def from_jax_params(params: Dict[str, Any], cfg: LlamaConfig,
     return _load_jax_params(Llama(cfg, device), params)
 
 
-__all__ = ["Block", "Llama", "LlamaConfig", "PRESETS", "config",
-           "flops_per_token", "from_jax_params", "init", "leaf_groups",
-           "loss_fn", "to_jax_params"]
+__all__ = ["Block", "Llama", "LlamaConfig", "PRESETS", "batch_spec",
+           "config", "flops_per_token", "from_jax_params", "init",
+           "leaf_groups", "loss_fn", "param_specs", "to_jax_params"]

@@ -18,6 +18,11 @@ PyTorch versions (:func:`_flash_forward_reference`,
 same tiled loops. A sequence length with no 128-multiple divisor takes
 the blockwise route and returns no ``lse``, exactly as the JAX package
 does; its backward differentiates ``blockwise_attention`` with autograd.
+
+The kernels take plain tensors: a DTensor argument raises ``TypeError``.
+On a mesh, attention runs on each rank's local heads, through
+``torch.distributed.tensor.experimental.local_map`` or ``to_local``, as
+the port's models do.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.blockwise_attention import blockwise_attention
@@ -180,9 +186,18 @@ def _flash_forward_cuda(q, k, v, causal: bool):
     return out, lse
 
 
+def _refuse_dtensors(*xs) -> None:
+    if any(isinstance(x, DTensor) for x in xs):
+        raise TypeError(
+            "flash_attention takes plain tensors, got a DTensor: run it on "
+            "each rank's local heads through torch.distributed.tensor."
+            "experimental.local_map (or to_local/from_local)")
+
+
 def _flash_forward(q, k, v, causal: bool, blk_q: int, blk_k: int):
     """q: [B, S, H, D], k/v: [B, S, KVH, D] → (out [B, S, H, D], lse
     [B·H, 1, S] fp32, or None on the ragged route)."""
+    _refuse_dtensors(q, k, v)
     B, S, H, D = q.shape
     blk_q = _pick_block(S, blk_q)
     blk_k = _pick_block(S, blk_k)
@@ -388,5 +403,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True, blk_q: int = 1024,
                     blk_k: int = 1024, saved=None):
     """q: [B, S, H, D], k/v: [B, S, KVH, D] → [B, S, H, D]; ``saved``: see
-    :class:`FlashAttention`."""
+    :class:`FlashAttention`. Plain tensors only (a DTensor raises
+    ``TypeError``)."""
+    _refuse_dtensors(q, k, v)
     return FlashAttention.apply(q, k, v, causal, blk_q, blk_k, saved)

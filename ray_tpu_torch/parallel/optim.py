@@ -25,6 +25,16 @@ over all layers' ``wq`` together. Here the layers are separate tensors;
 ``init(params, groups)`` takes the leaves as ``{leaf: [names]}`` (for a
 GPT, ``models.gpt.leaf_groups``), and a group of more than one name is
 one leaf stacked over layers.
+
+On a mesh the parameters and gradients are DTensors (FSDP2 and tensor
+parallelism, ``parallel/sharding.py``). Every transformation then works on
+each rank's local blocks, and a quantity of a whole tensor is reduced over
+the mesh: the global norm and each leaf's block RMS from the ranks' sums
+of squares, each replicated block counted once (:func:`_global_sums`),
+and Adafactor's row and column means over the ranks that split the
+reduced dim (:func:`_mean`). The factored moments are those of the whole
+tensor; each rank keeps its slice of them. On one rank every value is the
+one-device value exactly.
 """
 
 from __future__ import annotations
@@ -34,6 +44,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ray_tpu_torch.parallel.sharding import local
 
 Params = Dict[str, torch.Tensor]
 Groups = Dict[str, List[str]]
@@ -56,6 +70,40 @@ def _count(params: Params) -> torch.Tensor:
 def _increment(count: torch.Tensor) -> torch.Tensor:
     """``numerics.safe_increment``: +1, saturating at the int32 maximum."""
     return torch.where(count < torch.iinfo(torch.int32).max, count + 1, count)
+
+
+def _global_sums(values: List[torch.Tensor],
+                 tensors: List[torch.Tensor]) -> torch.Tensor:
+    """Stack ``values``, each a rank's sum over its local block of the
+    matching tensor, into the sums over the whole tensors: for DTensors
+    summed over the mesh, each block counted on the first of the ranks
+    that replicate it."""
+    sums = torch.stack(values)
+    placed = [t for t in tensors if isinstance(t, DTensor)]
+    if not placed:
+        return sums
+    mesh = placed[0].device_mesh
+    coord = mesh.get_coordinate()
+    first = [all(coord[m] == 0 for m, pl in enumerate(t.placements)
+                 if isinstance(pl, Replicate)) for t in tensors]
+    sums = sums * torch.tensor(first, dtype=sums.dtype, device=sums.device)
+    for dim in range(mesh.ndim):  # over every rank, one axis at a time
+        dist.all_reduce(sums, group=mesh.get_group(dim))
+    return sums
+
+
+def _mean(x: torch.Tensor, dim: int, param, param_dim: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean over ``dim`` of ``x``, a local block whose ``dim`` is
+    ``param``'s ``param_dim``: the sum over the ranks that split that dim,
+    over its whole size."""
+    total = x.sum(dim, keepdim=keepdim)
+    if isinstance(param, DTensor):
+        mesh = param.device_mesh
+        for m, pl in enumerate(param.placements):
+            if isinstance(pl, Shard) and pl.dim == param_dim:
+                dist.all_reduce(total, group=mesh.get_group(m))
+    return total / param.shape[param_dim]
 
 
 def _groups(params: Params, groups: Groups) -> Groups:
@@ -121,7 +169,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 def scale(factor: float) -> GradientTransformation:
     def update(updates, state, params=None):
         for u in updates.values():
-            u.mul_(factor)
+            local(u).mul_(factor)
         return updates, state
 
     return GradientTransformation(_empty, update)
@@ -131,15 +179,19 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """Scale all updates by ``max_norm / ‖u‖`` when their global L2 norm is
     ``max_norm`` or more."""
     def update(updates, state, params=None):
-        norms = torch.stack([torch.linalg.vector_norm(x.float())
-                             for x in updates.values()])
+        tensors = list(updates.values())
+        # Each tensor's norm as sqrt(Σ x²): in fp32 sqrt(fl(n²)) is n, so
+        # off a mesh these are the tensors' norms exactly.
+        norms = torch.sqrt(_global_sums(
+            [torch.linalg.vector_norm(local(x).float()) ** 2
+             for x in tensors], tensors))
         g_norm = torch.linalg.vector_norm(norms)
         keep = g_norm < max_norm
         # optax's where(keep, x, (x / ‖u‖) * max_norm): x / 1 * 1 is x.
         denom = torch.where(keep, torch.ones_like(g_norm), g_norm)
         mult = torch.where(keep, 1.0, max_norm)
-        for x in updates.values():
-            x.div_(denom.to(x.dtype)).mul_(mult.to(x.dtype))
+        for x in tensors:
+            local(x).div_(denom.to(x.dtype)).mul_(mult.to(x.dtype))
         return updates, state
 
     return GradientTransformation(_empty, update)
@@ -150,14 +202,17 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
     """Bias-corrected first and second moments; ``m̂ / (√v̂ + eps)``."""
     def init(params, groups):
         return {"count": _count(params),
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+                "mu": {n: torch.zeros_like(local(p))
+                       for n, p in params.items()},
+                "nu": {n: torch.zeros_like(local(p))
+                       for n, p in params.items()}}
 
     def update(updates, state, params=None):
         count = _increment(state["count"])
         c1 = 1 - b1 ** count.float()
         c2 = 1 - b2 ** count.float()
         for n, g in updates.items():
+            g = local(g)
             mu, nu = state["mu"][n], state["nu"][n]
             mu.mul_(b1).add_((1 - b1) * g)
             nu.mul_(b2).add_((1 - b2) * (g * g))
@@ -171,7 +226,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(updates, state, params):
         for n, u in updates.items():
-            u.add_(weight_decay * params[n])
+            local(u).add_(weight_decay * local(params[n]))
         return updates, state
 
     return GradientTransformation(_empty, update)
@@ -186,7 +241,7 @@ def scale_by_learning_rate(learning_rate: Schedule, flip_sign: bool = True
     def update(updates, state, params=None):
         step_size = sign * learning_rate(state["count"])
         for u in updates.values():
-            u.mul_(step_size.to(u.dtype))
+            local(u).mul_(step_size.to(u.dtype))
         return updates, {"count": _increment(state["count"])}
 
     return GradientTransformation(lambda p, g: {"count": _count(p)}, update)
@@ -248,7 +303,7 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
         state = {"count": _count(params), "dims": plan, "v_row": {},
                  "v_col": {}, "v": {}}
         for n, dims in plan.items():
-            p = params[n]
+            p = local(params[n])
             if dims is None:
                 state["v"][n] = torch.zeros_like(p)
             else:
@@ -261,7 +316,8 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
         t = (state["count"] + 1).float()
         decay_t = 1.0 - t ** (-decay_rate)
         keep = 1.0 - decay_t
-        for n, g in updates.items():
+        for n, whole in updates.items():
+            g = local(whole)
             grad_sqr = g * g + eps
             dims = state["dims"][n]
             if dims is None:
@@ -271,11 +327,11 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
                 continue
             d1, d0 = dims
             v_row, v_col = state["v_row"][n], state["v_col"][n]
-            v_row.mul_(decay_t).add_(keep * grad_sqr.mean(d0))
-            v_col.mul_(decay_t).add_(keep * grad_sqr.mean(d1))
+            v_row.mul_(decay_t).add_(keep * _mean(grad_sqr, d0, whole, d0))
+            v_col.mul_(decay_t).add_(keep * _mean(grad_sqr, d1, whole, d1))
             del grad_sqr
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+            row_col_mean = _mean(v_row, reduced_d1, whole, d1, keepdim=True)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             g.mul_(row_factor.unsqueeze(d0)).mul_(col_factor.unsqueeze(d1))
@@ -284,21 +340,29 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
     return GradientTransformation(init, update)
 
 
-def _block_mean_square(tensors: Dict[str, torch.Tensor], names):
-    """Mean of x² over all the named tensors together (one JAX leaf)."""
-    sq = torch.stack([torch.linalg.vector_norm(tensors[n].float()) ** 2
-                      for n in names]).sum()
-    return sq / sum(tensors[n].numel() for n in names)
+def _block_mean_squares(tensors: Dict[str, torch.Tensor], groups: Groups
+                        ) -> Dict[str, torch.Tensor]:
+    """Per JAX leaf, the mean of x² over all its tensors together."""
+    names = [n for ns in groups.values() for n in ns]
+    sq = _global_sums([torch.linalg.vector_norm(local(tensors[n]).float())
+                       ** 2 for n in names], [tensors[n] for n in names])
+    out, i = {}, 0
+    for leaf, ns in groups.items():
+        out[leaf] = (sq[i:i + len(ns)].sum()
+                     / sum(tensors[n].numel() for n in ns))
+        i += len(ns)
+    return out
 
 
 def clip_by_block_rms(threshold: float) -> GradientTransformation:
     """Divide each JAX leaf's updates by ``max(1, rms / threshold)``."""
     def update(updates, state, params=None):
-        for names in state["groups"].values():
-            rms = torch.sqrt(_block_mean_square(updates, names))
+        mean_sq = _block_mean_squares(updates, state["groups"])
+        for leaf, names in state["groups"].items():
+            rms = torch.sqrt(mean_sq[leaf])
             denom = torch.clamp_min(rms / threshold, 1.0)
             for n in names:
-                updates[n].div_(denom.to(updates[n].dtype))
+                local(updates[n]).div_(denom.to(updates[n].dtype))
         return updates, state
 
     return GradientTransformation(_leaves, update)
@@ -309,12 +373,13 @@ def scale_by_param_block_rms(min_scale: float = 1e-3
     """Multiply each JAX leaf's updates by its parameters' RMS, floored at
     ``min_scale``."""
     def update(updates, state, params):
-        for names in state["groups"].values():
-            rms = torch.sqrt(_block_mean_square(params, names))
+        mean_sq = _block_mean_squares(params, state["groups"])
+        for leaf, names in state["groups"].items():
+            rms = torch.sqrt(mean_sq[leaf])
             factor = torch.where(rms <= min_scale,
                                  torch.full_like(rms, min_scale), rms)
             for n in names:
-                updates[n].mul_(factor.to(updates[n].dtype))
+                local(updates[n]).mul_(factor.to(updates[n].dtype))
         return updates, state
 
     return GradientTransformation(_leaves, update)
@@ -337,7 +402,7 @@ def apply_updates(params: Params, updates: Params) -> None:
     """``optax.apply_updates``, in place: ``p += u`` (in p's dtype)."""
     with torch.no_grad():
         for n, p in params.items():
-            p.add_(updates[n].to(p.dtype))
+            local(p).add_(local(updates[n]).to(p.dtype))
 
 
 __all__ = ["GradientTransformation", "adafactor", "adamw",

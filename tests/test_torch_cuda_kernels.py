@@ -407,3 +407,89 @@ def test_llama_micro_backward_on_the_card_matches_the_cpu(cuda):
                                    cpu.named_parameters()):
         err = float((p.grad.cpu() - ref.grad).norm() / ref.grad.norm())
         assert err <= 1e-4, (name, err)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1-rank NCCL process group and the 1-rank mesh over it, as
+    ``prepare_mesh`` builds them in a train worker."""
+    from ray_tpu_torch.parallel import MeshConfig
+    from ray_tpu_torch.train.torch import prepare_mesh
+    mesh = prepare_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1))
+    try:
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("rules", ["tp_fsdp_rules", "dp_rules"])
+def test_gpt_micro_mesh_step_on_the_card_matches_the_step_without(nccl_mesh,
+                                                                   rules):
+    """gpt-micro (fp32 kernels) through FSDP2 and DTensor on the 1-rank
+    mesh against the step without a mesh, from the same seed: 3 AdamW
+    steps, losses to fp32 summation order (1e-5) and every parameter to
+    tests/test_torch_train_step.py's bounds; one rank runs the same ops,
+    so they are expected equal."""
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel import train_step as ts
+    cfg = gpt.config("gpt-micro", attn_impl="flash")
+    rules = getattr(sharding, rules)()
+    plain = ts.init_train_state(
+        cfg, optimizer=ts.default_optimizer(1e-3, warmup_steps=1), seed=0)
+    placed = ts.init_train_state(
+        cfg, nccl_mesh, rules, ts.default_optimizer(1e-3, warmup_steps=1),
+        seed=0)
+    steps = [ts.make_train_step(cfg, optimizer=ts.default_optimizer(
+        1e-3, warmup_steps=1)), ts.make_train_step(
+        cfg, nccl_mesh, rules, ts.default_optimizer(1e-3, warmup_steps=1))]
+    rng = np.random.default_rng(31)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (4, 257))).cuda()
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        plain, m_plain = steps[0](plain, batch)
+        before = fa.launches, fa.dq_launches, fa.dkv_launches
+        placed, m_placed = steps[1](placed, batch)
+        torch.cuda.synchronize()
+        assert (fa.launches - before[0], fa.dq_launches - before[1],
+                fa.dkv_launches - before[2]) == (cfg.n_layers,) * 3
+        assert float(m_placed["loss"]) == pytest.approx(
+            float(m_plain["loss"]), rel=1e-5)
+    for (name, p), (_, ref) in zip(placed["params"].named_parameters(),
+                                   plain["params"].named_parameters()):
+        torch.testing.assert_close(sharding.local(p), ref, atol=1e-6,
+                                   rtol=1e-5, msg=name)
+
+
+def test_k1_to_k3_through_local_map_on_heads_of_a_dtensor(nccl_mesh):
+    """Attention on DTensors sharded over heads runs K1 (forward) and K2/K3
+    (backward) on each rank's local heads through ``local_map``; the
+    wrapper itself refuses a DTensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.experimental import local_map
+    tp = nccl_mesh["tp"]
+    q, k, v = (x.requires_grad_() for x in _qkv(
+        2, 256, 8, 2, 64, torch.bfloat16, seed=32, device=nccl_mesh.device_type))
+    heads = [Shard(2)]
+    attn = local_map(lambda a, b, c: fa.flash_attention(a, b, c, True, 128,
+                                                        128),
+                     out_placements=heads, in_placements=(heads,) * 3,
+                     device_mesh=tp)
+    with pytest.raises(TypeError, match="local_map"):
+        fa.flash_attention(*(DTensor.from_local(x, tp, heads)
+                             for x in (q, k, v)))
+    before = fa.launches, fa.dq_launches, fa.dkv_launches
+    out = attn(*(DTensor.from_local(x, tp, heads) for x in (q, k, v)))
+    assert isinstance(out, DTensor) and tuple(out.placements) == (Shard(2),)
+    g = torch.from_numpy(np.random.default_rng(33).standard_normal(
+        tuple(out.shape), dtype=np.float32)).to(q.device, q.dtype)
+    grads = torch.autograd.grad(out, (q, k, v),
+                                DTensor.from_local(g, tp, heads))
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fa.dq_launches - before[1],
+            fa.dkv_launches - before[2]) == (1, 1, 1)
+    want = fa.flash_attention(q, k, v, True, 128, 128)
+    want_grads = torch.autograd.grad(want, (q, k, v), g)
+    assert torch.equal(out.to_local(), want)
+    for got, ref in zip(grads, want_grads):
+        assert torch.equal(got, ref)

@@ -263,15 +263,8 @@ def test_init_train_state_gives_adafactor_the_stacked_leaves():
     assert len(want["layers.wq"]) == cfg.n_layers
 
 
-def test_mesh_and_rules_wait_for_the_sharding_slice(monkeypatch):
+def test_init_train_state_needs_the_card_unless_given_the_cpu(monkeypatch):
     cfg = tgpt.config("gpt-tiny")
-    for kwargs in ({"mesh": object()}, {"rules": object()}):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tts.make_train_step(cfg, **kwargs)
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tts.init_train_state(cfg, device="cpu", **kwargs)
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tts.make_eval_step(cfg, **kwargs)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tts.init_train_state(cfg)
