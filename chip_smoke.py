@@ -57,7 +57,19 @@ printed:
    bench.py) and under ``tp_fsdp_rules()``: 2 warm-up and 4 timed steps
    each, (48, 24, 24) launches a step, each step's loss and the first
    update held to phase 5's, ms per step, MFU and peak memory beside
-   phase 5's, and a profile of one step.
+   phase 5's, and a profile of one step. 5e: sharded checkpoints: phase
+   5's recipe on the mesh under ``tp_fsdp_rules()`` takes 2 steps, is
+   saved in the JAX package's format (``save_train_state``) into a
+   temporary ``file://`` directory, and takes 2 more as the reference;
+   then a state of another seed under the same rules resumes from
+   ``latest_checkpoint`` (``load_for_rank``), and one under the all-None
+   rules (``restore_on_mesh``, the specs change): each must hold the saved
+   fp64 sums and norms of every parameter and optimizer tensor, and its 2
+   steps must give the reference's losses and fingerprints bit for bit.
+   The bytes on disk, save and restore seconds and GB/s (and the save's
+   layout on the host and one crc32 pass timed alone), the directory's
+   free space and the host's peak RSS during the save are printed; the
+   directory is deleted.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b"); the last line is the result.
@@ -73,12 +85,17 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -187,6 +204,8 @@ MESH_LOGITS_TOL = 0.0625
 # STEP_RTOL), where a wrong mask count, vocab offset or gradient scale
 # moves the loss by 1e-3 or more within the steps.
 MESH_LOSS_RTOL = 1e-5
+# 5e: steps before the save, and after it (the reference, and each resume).
+CKPT_STEPS = 2
 NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
@@ -1116,6 +1135,197 @@ def phase_mesh_training(torch, mesh, ref):
     return tuple(total)
 
 
+# -- 5e. checkpoints ----------------------------------------------------------
+
+def _opt_tensors(opt_state):
+    """The optimizer state's tensors in a fixed order (the plan's dims and
+    the leaf groups are not state)."""
+    if isinstance(opt_state, tuple):
+        for s in opt_state:
+            yield from _opt_tensors(s)
+    elif isinstance(opt_state, dict):
+        for k in sorted(opt_state):
+            if k not in ("dims", "groups"):
+                yield from _opt_tensors(opt_state[k])
+    else:
+        yield opt_state
+
+
+def _state_fingerprint(torch, state):
+    """_fingerprint of every parameter's local block, every optimizer
+    tensor (counts included) and the step."""
+    from ray_tpu_torch.parallel.sharding import local
+    tensors = [local(p) for p in state["params"].parameters()]
+    tensors += list(_opt_tensors(state["opt_state"])) + [state["step"]]
+    return _fingerprint(torch, {i: t.double() if t.dtype == torch.int32
+                                else t for i, t in enumerate(tensors)})
+
+
+class _PeakRSS:
+    """The process's peak resident memory while it runs, from
+    /proc/self/status sampled every 5 ms."""
+
+    def __enter__(self):
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        fail("no VmRSS in /proc/self/status")
+
+
+def phase_checkpoint(torch, mesh):
+    """Phase 5's recipe on the mesh under tp_fsdp_rules(): save after
+    CKPT_STEPS steps, then resume states of other seeds from the
+    checkpoint under the same rules (load_for_rank) and under the all-None
+    rules (restore_on_mesh); each resumed run's steps must be the
+    uninterrupted run's bit for bit. Returns the (K1, K2, K3) launches."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import optim, tp_fsdp_rules
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.sharding import local
+    from ray_tpu_torch.train import (CheckpointManager, latest_checkpoint,
+                                     restore_train_state, save_train_state)
+    from ray_tpu_torch.train._internal import sharded_checkpoint as sc
+    from ray_tpu_torch.train.torch.checkpoint import restore_route
+
+    cfg = gpt.config(TRAIN_PRESET, **TRAIN_OVERRIDES)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, DEVICE)
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    per_step = []
+
+    def fresh(rules, seed):
+        opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+        return (ts.init_train_state(cfg, mesh, rules, opt, seed=seed,
+                                    device=DEVICE),
+                ts.make_train_step(cfg, mesh, rules, opt))
+
+    def steps(state, step):
+        losses, prints = [], []
+        for _ in range(CKPT_STEPS):
+            counts0 = _counts(fa)
+            state, metrics = step(state, batch)
+            per_step.append(tuple(b - a for a, b in
+                                  zip(counts0, _counts(fa))))
+            losses.append(float(metrics["loss"]))
+            prints.append(_state_fingerprint(torch, state))
+        return state, losses, prints
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _zero_counts(fa)
+        state, step = fresh(tp_fsdp_rules(), seed=0)
+        state, _, _ = steps(state, step)
+        torch.cuda.synchronize()
+        saved = _state_fingerprint(torch, state)
+        manager = CheckpointManager(root, "chip-smoke")
+        with _PeakRSS() as rss:
+            t0 = time.perf_counter()
+            handle = save_train_state(state, manager, mesh, tp_fsdp_rules())
+            save_s = time.perf_counter() - t0
+        check(handle is not None, "the save committed no checkpoint")
+        on_disk = sum(f.stat().st_size for f in pathlib.Path(root).iterdir())
+        shard_bytes = sum(s["bytes"] for s in handle.manifest["shards"])
+        free = shutil.disk_usage(root).free
+        print(f"ckpt: {TRAIN_PRESET} Adafactor state after {CKPT_STEPS} "
+              f"steps saved as seq {handle.seq}: "
+              f"{len(handle.manifest['params'])} leaves, {shard_bytes} "
+              f"bytes of shard, {on_disk} bytes on disk in {save_s:.3f} s "
+              f"({on_disk / save_s / 1e9:.3f} GB/s, "
+              f"device-to-host copies, crc32s and fsync included); host RSS "
+              f"{rss.base / 2**30:.2f} GiB before, peak {rss.peak / 2**30:.2f}"
+              f" GiB during the save (+{(rss.peak - rss.base) / 2**30:.2f}); "
+              f"{free / 2**30:.1f} GiB free in {tempfile.gettempdir()}")
+        # Where the save's time goes: the state laid out on the host alone,
+        # and one crc32 pass over it (write_shard takes two).
+        model = state["params"]
+        groups = gpt.leaf_groups(model)
+        t0 = time.perf_counter()
+        host, _ = sc.flatten_tree({
+            "params": optim.to_jax_tree({n: local(p) for n, p in
+                                         model.named_parameters()},
+                                        groups, "cpu"),
+            "opt_state": optim.to_optax_state(state["opt_state"], groups,
+                                              "cpu")})
+        layout_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in host.values():
+            zlib.crc32(t.numpy())
+        crc_s = time.perf_counter() - t0
+        del host, model
+        print(f"ckpt: of the save, the layout on the host (device-to-host "
+              f"copies, layers stacked) alone takes {layout_s:.3f} s and "
+              f"one crc32 pass {crc_s:.3f} s; write_shard takes two passes, "
+              f"the rest is its bytes copy, the write and fsync, and the "
+              f"commit")
+        state, ref_losses, ref_prints = steps(state, step)
+        print(f"ckpt: uninterrupted run's losses after the save "
+              f"{ref_losses}")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for rules_name, rules, seed, route in (
+                ("tp_fsdp_rules()", tp_fsdp_rules(), 1, "load_for_rank"),
+                ("rules all None (bench.py)", _all_rules(), 2,
+                 "restore_on_mesh")):
+            state, step = fresh(rules, seed)
+            ckpt = latest_checkpoint(manager)
+            check(ckpt is not None and ckpt.uri == handle.uri,
+                  f"latest_checkpoint is {ckpt}, not {handle}")
+            got = restore_route(ckpt, state, mesh, rules)
+            check(got == route, f"{rules_name}: restore route {got}, "
+                  f"expected {route}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = restore_train_state(state, ckpt, mesh, rules)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(torch.equal(_state_fingerprint(torch, state), saved),
+                  f"{rules_name}: the restored state's fp64 sums and norms "
+                  f"differ from the saved state's")
+            state, losses, prints = steps(state, step)
+            check(losses == ref_losses and all(
+                torch.equal(a, b) for a, b in zip(prints, ref_prints)),
+                f"{rules_name}: resumed losses {losses} against the "
+                f"uninterrupted {ref_losses}, fingerprints equal: "
+                f"{[torch.equal(a, b) for a, b in zip(prints, ref_prints)]}")
+            print(f"ckpt: {rules_name}: restored by {route} in "
+                  f"{restore_s:.3f} s ({shard_bytes / restore_s / 1e9:.3f} "
+                  f"GB/s of shard read, crc32s and host-to-device copies "
+                  f"included); every tensor's fp64 sum and norm equal to "
+                  f"the saved state's; {CKPT_STEPS} steps' losses {losses} "
+                  f"and fingerprints bit-equal to the uninterrupted run's")
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), f"{root} was not deleted")
+    counts = _counts(fa)
+    check(all(c == per_layer for c in per_step),
+          f"launches per step (K1, K2, K3) {per_step}, expected {per_layer}")
+    print(f"ckpt: launches over {len(per_step)} steps (K1, K2, K3) {counts} "
+          f"= {per_layer} per step")
+    return counts
+
+
 def phase_small_training(torch):
     """gpt-micro (fp32) through the train step: K1-K3 on the card against
     the plain versions on the CPU, 3 steps of AdamW from the same weights
@@ -1385,7 +1595,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5d; returns the kernels line's rows."""
+    """Phases 2-5e; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -1407,6 +1617,7 @@ def _main_phases(torch):
     (k1_train, k2_train, k3_train), ref = _timed("5", phase_training, torch)
     k1_mesh, k2_mesh, k3_mesh = _timed("5d", phase_mesh_training, torch,
                                        mesh, ref)
+    k1_ckpt, k2_ckpt, k3_ckpt = _timed("5e", phase_checkpoint, torch, mesh)
     _timed("5 (gpt-micro)", phase_small_training, torch)
     k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
     _timed("5c", phase_llama_small, torch)
@@ -1416,13 +1627,13 @@ def _main_phases(torch):
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": ref + "37",
          "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
-                      + k1_mesh + k1_llama), **k1},
+                      + k1_mesh + k1_ckpt + k1_llama), **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
-         "launches": k2_train + k2_mesh + k2_llama, **k2},
+         "launches": k2_train + k2_mesh + k2_ckpt + k2_llama, **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
-         "launches": k3_train + k3_mesh + k3_llama, **k3}]
+         "launches": k3_train + k3_mesh + k3_ckpt + k3_llama, **k3}]
 
 
 if __name__ == "__main__":

@@ -35,11 +35,19 @@ and Adafactor's row and column means over the ranks that split the
 reduced dim (:func:`_mean`). The factored moments are those of the whole
 tensor; each rank keeps its slice of them. On one rank every value is the
 one-device value exactly.
+
+:func:`to_optax_state` and :func:`from_optax_state` carry a state to and
+from the layout of optax's own state for the same chain, as the JAX
+package's checkpoints hold it: tuples for chains and transformations, each
+moment a nested dict of the JAX leaves (``{"layers": {"wq": ...}, "wte":
+...}``) with the layers stacked on a leading ``[L, ...]`` axis, and
+optax's ``(1,)`` placeholders where Adafactor keeps no moment.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -398,6 +406,181 @@ def adafactor(learning_rate: Schedule) -> GradientTransformation:
                  scale(-1))
 
 
+# -- optax's layout ----------------------------------------------------------
+
+@dataclass
+class _Leaf:
+    """One leaf of optax's state: the port's tensors that hold it (one, or
+    one per layer when ``stacked``), or None for optax's ``(1,)``
+    placeholder; ``key`` names its JAX leaf (None for a step count) and
+    ``drop`` the parameter dim a factored moment reduces."""
+    tensors: Optional[List[torch.Tensor]]
+    stacked: bool = False
+    key: Optional[str] = None
+    drop: Optional[int] = None
+
+
+def _nest(groups: Groups, leaf: Callable[[str, List[str]], Any]
+          ) -> Dict[str, Any]:
+    """``{"layers": {"wq": leaf("layers.wq", names)}, "wte": ...}``: the
+    JAX package's nested parameter tree of the leaves of ``groups``."""
+    tree: Dict[str, Any] = {}
+    for key, names in groups.items():
+        *outer, last = key.split(".")
+        node = tree
+        for part in outer:
+            node = node.setdefault(part, {})
+        node[last] = leaf(key, names)
+    return tree
+
+
+def _moments(tensors: Params, groups: Groups, drop=None) -> Dict[str, Any]:
+    def leaf(key, names):
+        have = [tensors[n] for n in names if n in tensors]
+        if have and len(have) != len(names):
+            raise ValueError(f"{key}: a moment for some of its layers only")
+        return _Leaf(have or None, key.startswith("layers."), key,
+                     None if drop is None or not have else drop(names[0]))
+    return _nest(groups, leaf)
+
+
+def _layout(state: State, groups: Groups) -> Any:
+    """``state`` in optax's layout, with a :class:`_Leaf` per leaf."""
+    if isinstance(state, tuple):
+        return tuple(_layout(s, groups) for s in state)
+    out = (_Leaf([state["count"]]),) if "count" in state else ()
+    if "mu" in state:
+        return out + (_moments(state["mu"], groups),
+                      _moments(state["nu"], groups))
+    if "v_row" in state:
+        dims = state["dims"]
+        return out + (_moments(state["v_row"], groups, lambda n: dims[n][1]),
+                      _moments(state["v_col"], groups, lambda n: dims[n][0]),
+                      _moments(state["v"], groups))
+    return out
+
+
+def _map(tree: Any, fn: Callable[[_Leaf], Any]) -> Any:
+    if isinstance(tree, _Leaf):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return tuple(_map(v, fn) for v in tree)
+
+
+def _gather(leaf: _Leaf, device) -> torch.Tensor:
+    """The leaf's value on ``device`` (None: where its tensors are); a
+    stacked leaf is copied into one ``[L, ...]`` tensor there."""
+    if leaf.tensors is None:
+        return torch.zeros((1,), dtype=torch.float32, device=device)
+    first = leaf.tensors[0]
+    if not leaf.stacked:
+        return first.detach().to(device or first.device)
+    out = torch.empty((len(leaf.tensors),) + tuple(first.shape),
+                      dtype=first.dtype, device=device or first.device)
+    for i, t in enumerate(leaf.tensors):
+        out[i].copy_(t.detach())
+    return out
+
+
+def to_jax_tree(tensors: Params, groups: Groups, device=None
+                ) -> Dict[str, Any]:
+    """``tensors`` (one per parameter name, such as each parameter's local
+    block) as the JAX package's nested tree of ``groups``' leaves, layers
+    stacked, on ``device`` (None: where the tensors are). An unstacked
+    leaf on its own device is the tensor itself, not a copy."""
+    return _map(_moments(tensors, groups), lambda leaf: _gather(leaf, device))
+
+
+def to_optax_state(state: State, groups: Groups, device=None) -> Any:
+    """``state`` (a chain's, from ``init(params, groups)``) in the layout
+    of optax's state for the same chain, as :func:`to_jax_tree` lays out
+    each moment; a count is a 0-d int32 tensor, a placeholder zeros of
+    shape ``(1,)``. Holds each rank's own blocks; the plan's ``dims`` are
+    not state and are left out, as optax keeps them out."""
+    return _map(_layout(state, groups), lambda leaf: _gather(leaf, device))
+
+
+def optax_state_specs(state: State, groups: Groups,
+                      specs: Dict[str, Any]) -> Any:
+    """The PartitionSpec of each leaf of :func:`to_optax_state`'s tree,
+    given each JAX leaf's parameter spec (``specs[key]``, with the layer
+    axis's entry for a stacked leaf): a moment's is its parameter's, a
+    factored moment's that less the dim it reduces; counts and
+    placeholders are replicated."""
+    from ray_tpu_torch.parallel.sharding import PartitionSpec
+
+    def spec(leaf: _Leaf):
+        if leaf.key is None or leaf.tensors is None:
+            return PartitionSpec()
+        parts = list(specs[leaf.key])
+        if leaf.drop is not None:  # a short spec leaves the rest None
+            del parts[leaf.drop + leaf.stacked:leaf.drop + leaf.stacked + 1]
+        return PartitionSpec(*parts)
+
+    return _map(_layout(state, groups), spec)
+
+
+def _copy_in(leaf: _Leaf, value, where: str) -> None:
+    if not isinstance(value, torch.Tensor):
+        value = np.asarray(value)
+        value = torch.from_numpy(value if value.flags.writeable
+                                 else value.copy())
+    if leaf.tensors is None:
+        if tuple(value.shape) != (1,):
+            raise ValueError(f"{where}: optax keeps a (1,) placeholder "
+                             f"here, not {tuple(value.shape)}")
+        return
+    parts = value.unbind(0) if leaf.stacked else (value,)
+    if len(parts) != len(leaf.tensors):
+        raise ValueError(f"{where}: {len(parts)} layers for "
+                         f"{len(leaf.tensors)}")
+    for t, v in zip(leaf.tensors, parts):
+        if v.dtype != t.dtype or v.shape != t.shape:
+            raise ValueError(
+                f"{where}: {v.dtype} {tuple(v.shape)} into {t.dtype} "
+                f"{tuple(t.shape)}; nothing is cast or reshaped")
+        t.copy_(v)
+
+
+def _copy_tree(layout: Any, tree: Any, where: str) -> None:
+    if isinstance(layout, _Leaf):
+        _copy_in(layout, tree, where)
+        return
+    if isinstance(layout, dict):
+        if not isinstance(tree, dict) or set(tree) != set(layout):
+            raise ValueError(f"{where}: keys {sorted(tree)} for "
+                             f"{sorted(layout)}")
+        for k in layout:
+            _copy_tree(layout[k], tree[k], f"{where}/{k}")
+        return
+    if not isinstance(tree, (tuple, list)) or len(tree) != len(layout):
+        raise ValueError(f"{where}: {type(tree).__name__} of "
+                         f"{len(tree)} for a tuple of {len(layout)}")
+    for i, (lay, sub) in enumerate(zip(layout, tree)):
+        _copy_tree(lay, sub, f"{where}/{i}")
+
+
+def from_jax_tree(tree: Dict[str, Any], tensors: Params,
+                  groups: Groups) -> None:
+    """The inverse of :func:`to_jax_tree`, in place: each leaf of ``tree``
+    (numpy arrays or tensors) copied into ``tensors``, layer by layer.
+    Shapes and dtypes must match exactly."""
+    with torch.no_grad():
+        _copy_tree(_moments(tensors, groups), tree, "params")
+
+
+def from_optax_state(tree: Any, state: State, groups: Groups) -> State:
+    """The inverse of :func:`to_optax_state`, in place: ``tree`` (optax's
+    layout, numpy arrays or tensors) copied into ``state``, a state of
+    the same chain from ``init(params, groups)``, whose tensors keep
+    their devices; returns ``state``. Shapes and dtypes must match
+    exactly, and each placeholder must be optax's ``(1,)``."""
+    with torch.no_grad():
+        _copy_tree(_layout(state, groups), tree, "opt_state")
+    return state
+
+
 def apply_updates(params: Params, updates: Params) -> None:
     """``optax.apply_updates``, in place: ``p += u`` (in p's dtype)."""
     with torch.no_grad():
@@ -407,7 +590,8 @@ def apply_updates(params: Params, updates: Params) -> None:
 
 __all__ = ["GradientTransformation", "adafactor", "adamw",
            "add_decayed_weights", "apply_updates", "chain",
-           "clip_by_block_rms", "clip_by_global_norm", "scale",
+           "clip_by_block_rms", "clip_by_global_norm", "from_jax_tree",
+           "from_optax_state", "optax_state_specs", "scale",
            "scale_by_adam", "scale_by_factored_rms",
            "scale_by_learning_rate", "scale_by_param_block_rms",
-           "warmup_cosine_decay_schedule"]
+           "to_jax_tree", "to_optax_state", "warmup_cosine_decay_schedule"]

@@ -1,6 +1,7 @@
 """Process-local metrics: Counter and Gauge over a named registry.
 
-A copy of the ``Metric``, ``Counter``, ``Gauge`` and registry parts of
+A copy of the ``Metric``, ``Counter``, ``Gauge``, ``Histogram`` and
+registry parts of
 ``ray_tpu/util/metrics.py`` (the port imports nothing of ``ray_tpu``).
 A registry aggregates tagged series per metric name; re-registering a
 name with the same signature returns the same series store.
@@ -8,8 +9,9 @@ name with the same signature returns the same series store.
 
 from __future__ import annotations
 
+import bisect
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _REGISTRY: Dict[str, "Metric"] = {}
 _REGISTRY_LOCK = threading.Lock()
@@ -82,6 +84,36 @@ class Gauge(Metric):
             tags: Optional[Dict[str, str]] = None) -> None:
         with self._lock:
             self._series[self._key(tags)] = float(value)
+
+
+class Histogram(Metric):
+    metric_type = "histogram"
+
+    def __init__(self, name: str, description: str = "",
+                 boundaries: Optional[Sequence[float]] = None,
+                 tag_keys: Optional[Sequence[str]] = None):
+        self.boundaries = sorted(boundaries or
+                                 [0.001, 0.01, 0.1, 1, 10, 100, 1000])
+        super().__init__(name, description, tag_keys)
+        if not hasattr(self, "_buckets"):
+            self._buckets: Dict[Tuple[str, ...], List[int]] = {}
+            self._sums: Dict[Tuple[str, ...], float] = {}
+            self._counts: Dict[Tuple[str, ...], int] = {}
+
+    def _signature(self) -> Tuple:
+        return (self.metric_type, self.description, self.tag_keys,
+                tuple(self.boundaries))
+
+    def observe(self, value: float,
+                tags: Optional[Dict[str, str]] = None) -> None:
+        key = self._key(tags)
+        with self._lock:
+            buckets = self._buckets.setdefault(
+                key, [0] * (len(self.boundaries) + 1))
+            buckets[bisect.bisect_left(self.boundaries, value)] += 1
+            self._sums[key] = self._sums.get(key, 0.0) + value
+            self._counts[key] = self._counts.get(key, 0) + 1
+            self._series[key] = value  # last observation
 
 
 def registry() -> Dict[str, Metric]:

@@ -244,5 +244,105 @@ def tree_blocks(mesh_cfg, tree, specs):
     return {"coords": _coords(mesh), "blocks": to_numpy(placed)}
 
 
+def _optimizer(name):
+    from ray_tpu_torch.parallel import train_step as ts
+    return {"adamw": lambda: ts.default_optimizer(1e-3, warmup_steps=1),
+            "adafactor": lambda: ts.memory_efficient_optimizer(
+                1e-2, warmup_steps=1)}[name]()
+
+
+def _local_tree(state):
+    """This rank's blocks of the state in the JAX layout, by path."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import optim
+    from ray_tpu_torch.parallel.sharding import local
+    from ray_tpu_torch.train._internal import sharded_checkpoint as sc
+
+    model = state["params"]
+    groups = gpt.leaf_groups(model)
+    tree = {"params": optim.to_jax_tree(
+                {n: local(p) for n, p in model.named_parameters()}, groups,
+                "cpu"),
+            "opt_state": optim.to_optax_state(state["opt_state"], groups,
+                                              "cpu"),
+            "step": state["step"]}
+    flat, _ = sc.flatten_tree(tree)
+    return {p: v.detach().numpy().copy() for p, v in flat.items()}
+
+
+def ckpt_save(preset, mesh_cfg, rules_name, opt_name, storage, batches):
+    """init_train_state on the mesh, the steps, then save_train_state into
+    ``storage`` (rank 0 holds the CheckpointManager): the manifest's URI
+    and this rank's blocks as saved."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.train import CheckpointManager, save_train_state
+
+    mesh, rules = _mesh(mesh_cfg), _rules(rules_name)
+    cfg, opt = gpt.config(preset), _optimizer(opt_name)
+    state = ts.init_train_state(cfg, mesh, rules, opt, seed=0, device="cpu")
+    step = ts.make_train_step(cfg, mesh, rules, opt)
+    for b in batches:
+        state, _ = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+    manager = (CheckpointManager(storage, "ranks")
+               if torch.distributed.get_rank() == 0 else None)
+    handle = save_train_state(state, manager, mesh, rules)
+    return {"coords": _coords(mesh), "uri": handle.uri,
+            "blocks": _local_tree(state)}
+
+
+def ckpt_restore(preset, mesh_cfg, rules_name, opt_name, uri, batch):
+    """A fresh state (another seed) on the mesh, restore_train_state from
+    ``uri``, then one step: the route taken, this rank's blocks after the
+    restore, the step's metrics and the parameters' blocks after it."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.train import ShardedCheckpoint, restore_train_state
+    from ray_tpu_torch.train.torch.checkpoint import restore_route
+
+    mesh, rules = _mesh(mesh_cfg), _rules(rules_name)
+    cfg, opt = gpt.config(preset), _optimizer(opt_name)
+    state = ts.init_train_state(cfg, mesh, rules, opt, seed=1, device="cpu")
+    ckpt = ShardedCheckpoint.from_manifest_uri(uri)
+    route = restore_route(ckpt, state, mesh, rules)
+    state = restore_train_state(state, ckpt, mesh, rules)
+    blocks = _local_tree(state)
+    state, m = ts.make_train_step(cfg, mesh, rules, opt)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return {"coords": _coords(mesh), "route": route, "blocks": blocks,
+            "loss": float(m["loss"]), "after": _locals(state["params"]),
+            "step": int(state["step"])}
+
+
+def dcp_round_trip(preset, save_mesh, save_rules, load_mesh, load_rules,
+                   directory):
+    """Checkpoint.from_sharded_state of a model placed on one mesh, then
+    restore_sharded_state into a model of another seed on another mesh:
+    this rank's blocks after the restore."""
+    import torch
+
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.config(preset)
+    model = gpt.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                     mesh=_mesh(save_mesh), rules=_rules(save_rules))
+    ckpt = Checkpoint.from_sharded_state(
+        {"model": model.state_dict(), "step": torch.tensor(7)}, directory,
+        extra={"step": 7})
+    mesh = _mesh(load_mesh)
+    other = gpt.init(cfg, torch.Generator().manual_seed(1), "cpu", mesh=mesh,
+                     rules=_rules(load_rules))
+    target = {"model": other.state_dict(), "step": torch.tensor(0)}
+    ckpt.restore_sharded_state(target)
+    return {"coords": _coords(mesh), "params": _locals(other),
+            "step": int(target["step"]), "extra": ckpt.extra_metadata}
+
+
 CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
-                                  llama_forward, tree_blocks)}
+                                  llama_forward, tree_blocks, ckpt_save,
+                                  ckpt_restore, dcp_round_trip)}

@@ -1,8 +1,9 @@
 """Import boundary of the PyTorch/CUDA port.
 
-``ray_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX and nothing
-of ``ray_tpu``, not even its framework-neutral modules: the port keeps its
-own copy of what it needs. Only the tests import both packages.
+``ray_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX (nor optax
+or orbax, its optimizer and checkpoint libraries) and nothing of
+``ray_tpu``, not even its framework-neutral modules: the port keeps its own
+copy of what it needs. Only the tests import both packages.
 """
 
 import ast
@@ -15,7 +16,7 @@ import textwrap
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ray_tpu")
 
 
 def _port_files():
