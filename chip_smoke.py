@@ -16,9 +16,11 @@ printed:
    must neither spill nor serialize.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
    version on the card, at an fp32 GQA shape, gpt-1.3b's serving and
-   training shapes and llama3-8b's (32 query heads over 8 KV heads); then
-   K2 and K3 (the backward: dq, and dk/dv) against theirs, at an fp32 GQA
-   shape and at both models' training shapes. Times of each kernel (per
+   training shapes, llama3-8b's (32 query heads over 8 KV heads) and
+   gpt-moe-8x410m's (16 heads of 64), and in fp32 at head dim 64 and S
+   1024; then K2 and K3 (the backward: dq, and dk/dv) against theirs, at
+   an fp32 GQA shape, at the three models' training shapes and in fp32 at
+   head dim 64. Times of each kernel (per
    call through its wrapper, and per launch in a stream of launches,
    which hides the host's share), its plain version and PyTorch's
    ``scaled_dot_product_attention`` forward or backward (a yardstick only,
@@ -28,8 +30,17 @@ printed:
    generator, bf16 compute, flash attention) answers 8 requests, arriving
    while it decodes, through the port's ContinuousBatcher; later requests
    must join a running batch, and K1 must run once per layer per step.
-   Then the same step under dot attention, and gpt-micro on the card
-   against the CPU, check what comes out. 4b: llama3-8b at full width and
+   Then the same step under dot attention, and gpt-micro and gpt-moe-tiny
+   (4 experts, top-2) on the card against the CPU, check what comes out.
+   4d: gpt-moe-8x410m at full width and depth is served the same way, K1
+   at head dim 64; the share of tokens whose top-2 experts differ between
+   the flash, dot and fp32 runs, each routing itself, and their logit gaps
+   are printed, not held; the dot and fp32 runs then replay the flash
+   run's routes and their logits are held to gpt-1.3b's bound; and the
+   fp32 run's first MoE layer, on its own input and routing itself, is
+   held to an index-based version of the layer written apart from the
+   port's (top-2 experts and kept assignments exactly, output and aux term
+   to fp32 summation order). 4b: llama3-8b at full width and
    depth is served the same way, K1 on grouped-query attention. 4c: the
    same llama3-8b (same seed), placed on a 1-rank mesh by
    ``tp_fsdp_rules()`` (a 1-rank NCCL process group from
@@ -69,10 +80,19 @@ printed:
    The bytes on disk, save and restore seconds and GB/s (and the save's
    layout on the host and one crc32 pass timed alone), the directory's
    free space and the host's peak RSS during the save are printed; the
-   directory is deleted.
+   directory is deleted. 5f: gpt-moe-8x410m at full width and depth takes
+   8 steps of phase 5's recipe (48/24/24 launches a step, the step-0 loss,
+   the first update, ms per step, MFU by the active experts' FLOPs, peak
+   memory, a profile with the MoE layer's ranges). 5g: on the 1-rank mesh,
+   5f's steps under ``tp_fsdp_rules()`` (experts over an ep of one) must
+   be 5f's bit for bit; then gpt-1.3b placed by
+   ``context_parallel_rules()`` runs forward on phase 4's last buffer
+   under ``attn_impl`` "ring" and "ulysses" (over an sp of one), each
+   within the bf16 bound of "dot" and launching no kernel.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
-   llama3-8b's under "llama3_8b"); the last line is the result.
+   llama3-8b's under "llama3_8b" and gpt-moe-8x410m's under
+   "gpt_moe_8x410m"); the last line is the result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` runs phase 3 alone for the
 ``ray_tpu_torch`` of the checkout at ROOT (its kernels build under
@@ -206,6 +226,29 @@ MESH_LOGITS_TOL = 0.0625
 MESH_LOSS_RTOL = 1e-5
 # 5e: steps before the save, and after it (the reference, and each resume).
 CKPT_STEPS = 2
+# gpt-moe-8x410m (ray_tpu/models/gpt.py: 24 layers, d_model 1024, 16 heads
+# of 64, d_ff 4096, 8 experts, top-2, capacity factor 1.25, vocab 50304):
+# K1-K3 at head dim 64. Served as gpt-1.3b is (4d) and trained with
+# gpt-1.3b's recipe (5f).
+MOE_PRESET = "gpt-moe-8x410m"
+MOE_HEADS, MOE_HEAD_DIM = 16, 64
+# Step-0 loss: a logit of the N(0, 0.02^2) head over a unit-variance hidden
+# has std 0.02 * sqrt(1024) = 0.64, so the cross-entropy of a random target
+# is ln(50304) + 0.64^2 / 2 = 11.03; the aux term adds 0.01 x 24 layers x
+# about 1 (E * sum f p is 1 at perfect balance).
+MOE_LOSS0, MOE_LOSS0_TOL = 11.27, 0.3
+# 4d: gpt-moe-8x410m logits, flash against dot attention in bf16. Each
+# run routing itself, a token whose top-2 experts differ between the runs
+# (a rounding of the router's near-ties) takes another expert's output in
+# that layer, which moves its residual by ~10% and its later routing and
+# the keys and values other tokens attend to; and one flip moves which
+# later tokens of its row an expert drops at capacity. So flips cascade
+# with depth, and a flipped token's logits are another function's: their
+# gap is of the order of the logits themselves, and is printed, not held.
+# The held comparison replays the flash run's routes (experts, kept
+# assignments, slots) in the dot and fp32 runs, which then differ by their
+# arithmetic alone, as a dense model's do: gpt-1.3b's bound, over the
+# whole buffer.
 NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
@@ -491,6 +534,19 @@ def phase_kernel_check(torch):
                                   LLAMA_TRAIN_SEQ, H, KVH, 128,
                                   torch.bfloat16, True, 1024, 6)
     row["llama3_8b"]["training"] = _k1_times(torch, fa, q, k, v, dname)
+    # (f, g) gpt-moe-8x410m's serving and training shapes: 16 heads of 64;
+    # (h) the fp32 kernel at head dim 64 and S 1024.
+    q, k, v, err, _ = _check_kernel(torch, fa, NUM_SLOTS, SEQ, MOE_HEADS,
+                                    MOE_HEADS, MOE_HEAD_DIM, torch.bfloat16,
+                                    True, 512, 8)
+    row["gpt_moe_8x410m"] = {"max_abs_err": err,
+                             **_k1_times(torch, fa, q, k, v, dname)}
+    q, k, v, _, _ = _check_kernel(torch, fa, TRAIN_BATCH, TRAIN_SEQ,
+                                  MOE_HEADS, MOE_HEADS, MOE_HEAD_DIM,
+                                  torch.bfloat16, True, 512, 9)
+    row["gpt_moe_8x410m"]["training"] = _k1_times(torch, fa, q, k, v, dname)
+    _check_kernel(torch, fa, 2, SEQ, MOE_HEADS, MOE_HEADS, MOE_HEAD_DIM,
+                  torch.float32, True, 512, 10)
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -600,6 +656,13 @@ def phase_backward_check(torch):
     k2["llama3_8b"], k3["llama3_8b"] = _bwd_times(
         torch, fa, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, *LLAMA_HEADS, 128,
         1024, 7)
+    # gpt-moe-8x410m's training shape (head dim 64), and the fp32 kernels
+    # there.
+    k2["gpt_moe_8x410m"], k3["gpt_moe_8x410m"] = _bwd_times(
+        torch, fa, TRAIN_BATCH, TRAIN_SEQ, MOE_HEADS, MOE_HEADS,
+        MOE_HEAD_DIM, 512, 11)
+    _check_backward(torch, fa, 2, TRAIN_SEQ, MOE_HEADS, MOE_HEADS,
+                    MOE_HEAD_DIM, torch.float32, True, 512, 12)
     return k2, k3
 
 
@@ -648,9 +711,22 @@ def _decode_engine(torch, model, serve):
 
 
 def phase_serving(torch):
+    """gpt-1.3b served; returns the K1 launches and the last step's
+    buffer."""
     from ray_tpu_torch.models import gpt
     return _serve(torch, gpt, gpt.config(SERVE_PRESET, attn_impl="flash"),
-                  SERVE_PRESET, FLASH_VS_DOT_TOL)[0]
+                  SERVE_PRESET, FLASH_VS_DOT_TOL)[:2]
+
+
+def phase_moe_serving(torch):
+    """gpt-moe-8x410m served as gpt-1.3b is: K1 at head dim 64 once per
+    layer per step; the top-2 experts of every token in every layer
+    recorded under flash and under dot attention, the logits held to
+    gpt-1.3b's bound with the flash run's routes replayed, and the fp32
+    run's first MoE layer held to its index version."""
+    from ray_tpu_torch.models import gpt
+    return _serve(torch, gpt, gpt.config(MOE_PRESET, attn_impl="flash"),
+                  MOE_PRESET, FLASH_VS_DOT_TOL, routes=True)[0]
 
 
 def phase_llama_serving(torch):
@@ -729,12 +805,131 @@ def phase_llama_mesh_forward(torch, mesh, buf, want):
     return launches
 
 
-def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
+class _Routes:
+    """Within it, every MoE layer's top-k experts of every token and the
+    experts that kept a slot for it, in call order: ``models.gpt.
+    _moe_route`` wrapped. With ``replay`` (the _Routes of another run of
+    the same model and tokens) each layer takes that run's routing (its
+    experts, kept assignments and slots) and only its own router
+    probabilities for the gates, so the runs differ by their arithmetic
+    alone."""
+
+    def __init__(self, gpt, replay=None):
+        self.gpt, self.replay = gpt, replay
+        self.top, self.kept, self.routing = [], [], []
+        self.first_input = None  # the first MoE layer's h
+
+    def __enter__(self):
+        route = self._route = self.gpt._moe_route
+
+        def recording(cfg, h, block):
+            if not self.top:
+                self.first_input = h
+            out = route(cfg, h, block)
+            if self.replay is not None:
+                layer = self.replay.routing[len(self.top)]
+                out = (out[0],) + layer + out[5:]
+            else:
+                self.routing.append(out[1:5])
+            self.top.append(out[1].sort(-1).values)  # [B, S, K]
+            self.kept.append(out[3].sum(2) > 0)  # [B, S, E]
+            return out
+        self.gpt._moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.gpt._moe_route = self._route
+
+
+def _route_flips(torch, a, b, real):
+    """(the share of the ``real`` [B, S] tokens whose top-k sets differ
+    between two runs' routes, per layer; a [B, S] mask of the tokens whose
+    top-k experts and kept slots are alike in every layer)."""
+    differ = torch.stack([(x != y).any(-1) for x, y in zip(a.top, b.top)])
+    dropped = torch.stack([(x != y).any(-1) for x, y in zip(a.kept,
+                                                             b.kept)])
+    share = (differ & real).float().sum((1, 2)) / real.sum()
+    return share, ~(differ | dropped).any(0)
+
+
+def _moe_layer_by_index(torch, cfg, h, block):
+    """The MoE layer's semantics (``ray_tpu/models/gpt.py`` ``_moe_ffn``)
+    computed by index, apart from the port's one-hot dispatch: ``torch.
+    topk`` experts, each assignment's slot by a stable sort of its row's
+    (sequence, k)-ordered experts, each expert's kept tokens gathered, run
+    and scattered back. → (out, aux, top-k experts [B, S, K], kept [B, S,
+    K])."""
+    import torch.nn.functional as F
+    B, S, d = h.shape
+    E = cfg.n_experts
+    K = min(cfg.expert_top_k, E)
+    C = max(1, int(cfg.capacity_factor * S * K / E))
+    probs = torch.softmax(h.float() @ block.router.float(), dim=-1)
+    gates, top = torch.topk(probs, K, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    flat = top.reshape(B, S * K)
+    order = torch.sort(flat, dim=1, stable=True).indices
+    ranked = flat.gather(1, order)
+    first = torch.searchsorted(
+        ranked, torch.arange(E, device=h.device).expand(B, E).contiguous())
+    slot = torch.empty_like(flat)
+    slot.scatter_(1, order, torch.arange(S * K, device=h.device)
+                  - first.gather(1, ranked))
+    kept = (slot < C).reshape(B, S, K)
+    out = torch.zeros_like(h)
+    for e in range(E):
+        b, t, k = ((top == e) & kept).nonzero(as_tuple=True)
+        y = F.gelu(h[b, t] @ block.w_in[e] + block.b_in[e],
+                   approximate="tanh") @ block.w_out[e]
+        out.index_put_((b, t), y * gates[b, t, k, None], accumulate=True)
+    f = F.one_hot(top[..., 0], E).float().mean((0, 1))
+    aux = E * torch.sum(f * probs.mean((0, 1)))
+    return out, aux, top, kept
+
+
+def _check_moe_routing(torch, gpt, cfg, h, block, routing):
+    """The port's MoE layer on ``h`` (fp32, the fp32 run's first layer
+    input) and the routing that run recorded, against
+    :func:`_moe_layer_by_index`: the top-k experts and kept assignments
+    exactly, the output and aux term to MICRO_TOL."""
+    with torch.inference_mode():
+        out, aux = gpt._moe_ffn(cfg, h, block)
+        want, want_aux, top, kept = _moe_layer_by_index(torch, cfg, h, block)
+    C = max(1, int(cfg.capacity_factor * h.shape[1]
+                   * min(cfg.expert_top_k, cfg.n_experts) / cfg.n_experts))
+    gate_idx, keep = routing[0], routing[2].sum(-1) > 0
+    differ = int((gate_idx != top).any(-1).sum())
+    kept_differ = int((keep != kept).sum())
+    err = float((out - want).abs().max())
+    aux_err = abs(float(aux / want_aux) - 1)
+    print(f"serve: {MOE_PRESET}: the fp32 run's first MoE layer "
+          f"({tuple(h.shape)}, {cfg.n_experts} experts, capacity {C}) "
+          f"against the layer by index: tokens whose top-2 differ "
+          f"{differ}, kept assignments that differ {kept_differ} of "
+          f"{kept.numel()} ({int((~kept).sum())} dropped by the index "
+          f"version); max|dout| {err:.3e} (max|out| "
+          f"{float(want.abs().max()):.3e}, bound {MICRO_TOL:.0e} + rel), "
+          f"aux {float(aux):.6f} (rel diff {aux_err:.3e}, bound "
+          f"{MICRO_TOL:.0e})")
+    check(differ == 0 and kept_differ == 0,
+          "the MoE layer routes otherwise than its index version")
+    check(bool(((out - want).abs() <= MICRO_TOL + MICRO_TOL * want.abs())
+               .all()) and aux_err <= MICRO_TOL,
+          "the MoE layer disagrees with its index version")
+
+
+def _serve(torch, module, cfg, preset, flash_vs_dot_tol, routes=False):
     """8 requests through the port's ContinuousBatcher over ``module``'s
     model at ``cfg`` (random weights from a seeded generator, flash
     attention); then the last step's logits under flash and dot attention,
-    and a profile of one step. Frees the model and returns the K1 launches
-    of the served run, the last step's buffer and its flash logits."""
+    and a profile of one step. With ``routes`` (a MoE model) the share of
+    the buffer's tokens (each slot's first ``lens``) whose top-2 experts
+    differ between the runs, each routing itself, and those runs' gaps are
+    printed; the dot and fp32 logits held to the bound are then those of
+    runs that replay the flash run's routes (the note on 4d above
+    ``NUM_SLOTS`` says why). Frees the model and
+    returns the K1 launches of the served run, the last step's buffer and
+    its flash logits."""
     from dataclasses import replace
 
     from ray_tpu_torch import serve
@@ -797,27 +992,74 @@ def _serve(torch, module, cfg, preset, flash_vs_dot_tol):
 
     # The last step's buffer under flash and under dot attention, and under
     # dot attention in fp32 (parameters are fp32; TF32 is off).
-    with torch.inference_mode():
-        flash_raw = model(state["buf"])
-        flash = flash_raw.float()
-        model.cfg = replace(cfg, attn_impl="dot")
-        dot = model(state["buf"]).float()
-        model.cfg = replace(cfg, attn_impl="dot", dtype=torch.float32)
-        fp32 = model(state["buf"])
+    # A MoE model also runs dot and fp32 with the flash run's routes.
+    from ray_tpu_torch.models import gpt
+
+    def logits(run_cfg, replay=None):
+        model.cfg = run_cfg
+        with torch.inference_mode(), _Routes(gpt, replay) as run:
+            out = model(state["buf"])
         model.cfg = cfg
+        return out, run
+    flash_raw, flash_routes = logits(cfg)
+    flash = flash_raw.float()
+    dot, dot_routes = logits(replace(cfg, attn_impl="dot"))
+    fp32, fp32_routes = logits(replace(cfg, attn_impl="dot",
+                                       dtype=torch.float32))
+    dot = dot.float()
     check(flash.shape == (NUM_SLOTS, SEQ, cfg.vocab_size),
           f"logits shape {tuple(flash.shape)}")
     check(bool(torch.isfinite(flash).all()), "non-finite logits")
-    gap, gap32, dot32 = (float((a - b).abs().max()) for a, b in (
+    def gap_at(a, b, mask=None):
+        d = (a - b).abs().amax(-1)
+        return float(d.max() if mask is None else (d * mask).max())
+    free = ""
+    if routes:
+        check(len(flash_routes.top) == cfg.n_layers,
+              f"{len(flash_routes.top)} MoE layers ran, not {cfg.n_layers}")
+        real = (torch.arange(SEQ, device=DEVICE)[None, :]
+                < torch.tensor(state["lens"], device=DEVICE)[:, None])
+        flips, alike = _route_flips(torch, flash_routes, dot_routes, real)
+        flips32, alike32 = _route_flips(torch, flash_routes, fp32_routes,
+                                        real)
+        print(f"serve: {preset}: each run routing itself: of the "
+              f"buffer's {int(real.sum())} tokens, those whose top-2 "
+              f"experts differ, flash against dot: "
+              f"{float(flips.mean()):.4%} of (layer, token) pairs, per "
+              f"layer {[round(float(f), 5) for f in flips]}, "
+              f"{float((real & ~alike).sum() / real.sum()):.4%} of tokens "
+              f"routed or kept otherwise in some layer; flash against "
+              f"fp32: {float(flips32.mean()):.4%} and "
+              f"{float((real & ~alike32).sum() / real.sum()):.4%}; "
+              f"max|dlogit| flash vs dot {gap_at(flash, dot, real):.4f} "
+              f"over the buffer's tokens, "
+              f"{gap_at(flash, dot, alike & real):.4f} over the "
+              f"{int((alike & real).sum())} routed and kept "
+              f"alike in every layer, {gap_at(flash, dot, ~real):.4f} over "
+              f"the padding; flash vs fp32 {gap_at(flash, fp32, real):.4f} "
+              f"over the buffer's tokens (not held)")
+        free = (f" (each routing itself: {gap_at(flash, dot):.4f}, "
+                f"{gap_at(flash, fp32):.4f}, {gap_at(dot, fp32):.4f})")
+        _check_moe_routing(torch, gpt, replace(cfg, attn_impl="dot",
+                                               dtype=torch.float32),
+                           fp32_routes.first_input, model.blocks[0],
+                           fp32_routes.routing[0])
+        dot, _ = logits(replace(cfg, attn_impl="dot"), flash_routes)
+        fp32, _ = logits(replace(cfg, attn_impl="dot", dtype=torch.float32),
+                         flash_routes)
+        dot = dot.float()
+    gap, gap32, dot32 = (gap_at(a, b) for a, b in (
         (flash, dot), (flash, fp32), (dot, fp32)))
+    where = ("with the flash run's routes, over the whole buffer" if routes
+             else "over the whole buffer")
     print(f"serve: {preset}: max|logit| {float(flash.abs().max()):.4f}; "
-          f"flash vs dot max|dlogit| {gap:.4f} (bound {flash_vs_dot_tol}); "
-          f"against the fp32 forward: flash {gap32:.4f} (same bound), dot "
-          f"{dot32:.4f}")
+          f"{where}: flash vs dot max|dlogit| {gap:.4f} (bound "
+          f"{flash_vs_dot_tol}); against the fp32 forward: flash "
+          f"{gap32:.4f} (same bound), dot {dot32:.4f}{free}")
     check(gap <= flash_vs_dot_tol, "flash and dot logits disagree")
     check(gap32 <= flash_vs_dot_tol,
           "flash logits disagree with the fp32 forward")
-    del flash, dot, fp32
+    del flash, dot, fp32, flash_routes, dot_routes, fp32_routes
     _profile_step(torch, model, state["buf"])
     buf = state["buf"].clone()
     # The engine's parked decode task and the engine refer to each other:
@@ -839,11 +1081,14 @@ def _profile_step(torch, model, buf):
     _profile(torch, forward, f"one forward of [{NUM_SLOTS}, {SEQ}]", 8)
 
 
-def _profile(torch, fn, what, top, expect=()):
+def _profile(torch, fn, what, top, expect=(), ranges=()):
     """Run fn once under torch.profiler and print its device time by
     kernel, the top ``top`` kernels by device time, the port's flash
     kernels by name, and the step's time on the host clock. Each name in
-    ``expect`` must be among the kernels the profiler saw."""
+    ``expect`` must be among the kernels the profiler saw. For each of
+    the ``record_function`` ``ranges``, the device time of the kernels
+    launched inside it (forward and remat's replay; the backward's
+    kernels run outside it)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -851,9 +1096,11 @@ def _profile(torch, fn, what, top, expect=()):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # The ranges also appear on the device's timeline, as annotations.
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
+              and str(e.device_type).endswith("CUDA")
+              and e.key not in ranges]
     total = sum(e.self_device_time_total for e in events)
     if not total:
         print("profile: the profiler saw no device time (not measured)")
@@ -881,6 +1128,13 @@ def _profile(torch, fn, what, top, expect=()):
         print(f"  by class: {label} {t / 1e3:.3f} ms ({t / total:.1%})")
     print(f"  by class: everything else {rest / 1e3:.3f} ms "
           f"({rest / total:.1%})")
+    for name in ranges:
+        mine = [e for e in prof.key_averages() if e.key == name
+                and not str(e.device_type).endswith("CUDA")]
+        t = sum(e.device_time_total for e in mine)
+        n = sum(e.count for e in mine)
+        print(f"  range {name}: {t / 1e3:.3f} ms ({t / total:.1%}) of "
+              f"device time inside it, x{n}")
 
 
 def phase_small_reference(torch):
@@ -901,6 +1155,44 @@ def phase_small_reference(torch):
           f"max|dlogit| {err:.3e} (bound {MICRO_TOL:.0e})")
     check(bool(((got - ref).abs() <= MICRO_TOL + MICRO_TOL * ref.abs())
                .all()), "gpt-micro on the card disagrees with the CPU")
+
+
+def phase_moe_small(torch):
+    """gpt-moe-tiny in fp32 (4 experts, top-2; head dim 16) through the
+    kernels on the card against the plain versions on the CPU, from the
+    same weights and tokens: logits, the aux term, and the first
+    gradients."""
+    from ray_tpu_torch.models import gpt
+    cfg = gpt.config("gpt-moe-tiny", attn_impl="flash")
+    cpu = gpt.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = gpt.GPT(cfg, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, cfg.max_seq_len + 1)))
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+    with torch.inference_mode():
+        ref, ref_aux = cpu.forward_with_aux(tokens)
+        got, got_aux = card.forward_with_aux(tokens.to(DEVICE))
+    got, got_aux = got.cpu(), got_aux.cpu()
+    err = float((got - ref).abs().max())
+    aux_err = abs(float(got_aux / ref_aux) - 1)
+    grads = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, DEVICE)):
+        loss, _ = gpt.loss_fn(model, tokens.to(dev), targets.to(dev))
+        grads[name] = [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
+    grad_err = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    print(f"gpt-moe-tiny fp32, card kernels vs CPU plain versions: "
+          f"max|dlogit| {err:.3e} (bound {MICRO_TOL:.0e}), aux "
+          f"{float(got_aux):.6f} (rel diff {aux_err:.3e}, bound "
+          f"{MICRO_TOL:.0e}); max over tensors of |dgrad| / |grad| "
+          f"{grad_err:.3e} (bound {MICRO_GRAD_RTOL:.0e})")
+    check(bool(((got - ref).abs() <= MICRO_TOL + MICRO_TOL * ref.abs())
+               .all()) and aux_err <= MICRO_TOL,
+          "gpt-moe-tiny on the card disagrees with the CPU")
+    check(grad_err <= MICRO_GRAD_RTOL,
+          "gpt-moe-tiny gradients on the card disagree with the CPU")
 
 
 # -- 5. training --------------------------------------------------------------
@@ -1133,6 +1425,184 @@ def phase_mesh_training(torch, mesh, ref):
         gc.collect()
         torch.cuda.empty_cache()
     return tuple(total)
+
+
+# -- 5f, 5g. gpt-moe-8x410m ---------------------------------------------------
+
+def _moe_steps(torch, cfg, state, step, batch, n_steps, warmup):
+    """``n_steps`` of ``step``: (losses, seconds per step, (K1, K2, K3)
+    launches per step, each step's fingerprint of the parameters' local
+    blocks, peak memory over the steps after ``warmup``)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.sharding import local
+    losses, step_s, per_step, prints = [], [], [], []
+    for i in range(n_steps):
+        if i == warmup:
+            torch.cuda.reset_peak_memory_stats()
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+        losses.append(float(metrics["loss"]))
+        prints.append(_fingerprint(torch, {
+            n: local(p) for n, p in state["params"].named_parameters()}))
+    return (state, losses, step_s, per_step, prints,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_moe_training(torch):
+    """gpt-moe-8x410m at full width and depth with gpt-1.3b's recipe
+    (batch 12 x 1024, flash attention, full remat, loss_chunk 4096,
+    Adafactor after the global-norm clip): 2 warm-up and 6 timed steps,
+    each launching K1 48 times and K2 and K3 24 times at head dim 64; the
+    step-0 loss, the first update (lr 0), ms per step, MFU by the active
+    experts' FLOPs, peak memory, and a profile of one step with the MoE
+    layer's ranges. Returns the launches and phase 5g's reference."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt.config(MOE_PRESET, **TRAIN_OVERRIDES)
+    opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, optimizer=opt, seed=0, device=DEVICE)
+    step = ts.make_train_step(cfg, optimizer=opt)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, DEVICE)
+    before = _fingerprint(torch, dict(state["params"].named_parameters()))
+    torch.cuda.synchronize()
+    print(f"train: {MOE_PRESET} ({cfg.num_params() / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.expert_top_k}), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_OVERRIDES}, Adafactor lr 1e-4; state initialised in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _zero_counts(fa)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    state, losses, step_s, per_step, prints, peak = _moe_steps(
+        torch, cfg, state, step, batch, n_steps, TRAIN_WARMUP)
+    counts = _counts(fa)
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    check(all(c == per_layer for c in per_step),
+          f"launches per step (K1, K2, K3) {per_step}, expected {per_layer}")
+    check(torch.equal(prints[0], before),
+          "the first update changed a parameter")
+    check(np.isfinite(losses).all()
+          and abs(losses[0] - MOE_LOSS0) <= MOE_LOSS0_TOL,
+          f"step-0 loss {losses[0]} is not within {MOE_LOSS0_TOL} of "
+          f"{MOE_LOSS0}")
+    timed = step_s[TRAIN_WARMUP:]
+    mean_s = statistics.mean(timed)
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / mean_s
+    mfu = tokens_s * gpt.flops_per_token(cfg) / PEAK_FLOPS["bfloat16"]
+    print(f"train: {MOE_PRESET}: losses {[round(x, 5) for x in losses]}; "
+          f"first update left every parameter's fp64 sum and norm unchanged")
+    print(f"train: {MOE_PRESET}: {TRAIN_STEPS} timed steps: "
+          f"{[round(t * 1e3, 2) for t in timed]} ms; mean {mean_s * 1e3:.2f}"
+          f" ms/step (std {statistics.pstdev(timed) * 1e3:.2f}), "
+          f"{tokens_s:.1f} tokens/s, model FLOPs "
+          f"{gpt.flops_per_token(cfg):.4e}/token (active experts), MFU "
+          f"{mfu:.2%} of the 989 TFLOP/s bf16 peak; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"train: {MOE_PRESET}: launches over {n_steps} steps (K1, K2, K3) "
+          f"{counts} = {per_layer} per step")
+    _profile(torch, lambda: step(state, batch),
+             f"one training step of {MOE_PRESET} (full remat)", 20,
+             expect=WGMMA_KERNELS, ranges=("moe.route", "moe.dispatch",
+                                           "moe.experts", "moe.combine"))
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"losses": losses, "fingerprints": prints,
+                    "ms_per_step": mean_s * 1e3, "peak_gib": peak / 2**30}
+
+
+def phase_moe_mesh(torch, mesh, ref, buf):
+    """On the 1-rank mesh: 5f's recipe under tp_fsdp_rules() (the experts
+    over an ep of one), each step's loss and parameters bit-equal to 5f's;
+    then gpt-1.3b placed by context_parallel_rules() runs forward on phase
+    4's last buffer under attn_impl "ring" and "ulysses" (the sequence
+    over an sp of one), each within the bf16 bound of "dot" and launching
+    no kernel. Returns the (K1, K2, K3) launches."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import (context_parallel_rules,
+                                        tp_fsdp_rules)
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+
+    cfg = gpt.config(MOE_PRESET, **TRAIN_OVERRIDES)
+    opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+    state = ts.init_train_state(cfg, mesh, tp_fsdp_rules(), opt, seed=0,
+                                device=DEVICE)
+    step = ts.make_train_step(cfg, mesh, tp_fsdp_rules(), opt)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, DEVICE)
+    model = state["params"]
+    _check_placed(model, "tp_fsdp_rules()")
+    w_in = dict(model.named_parameters())["blocks.0.w_in"]
+    check(w_in.device_mesh.mesh_dim_names == ("dp", "fsdp", "tp", "ep"),
+          f"blocks.0.w_in lies on {w_in.device_mesh.mesh_dim_names}")
+    print(f"mesh: {MOE_PRESET}: blocks.0.w_in {tuple(w_in.shape)} on "
+          f"{w_in.device_mesh.mesh_dim_names} as {w_in.placements}")
+    _zero_counts(fa)
+    n_steps = MESH_WARMUP + MESH_STEPS
+    state, losses, step_s, per_step, prints, peak = _moe_steps(
+        torch, cfg, state, step, batch, n_steps, MESH_WARMUP)
+    counts = _counts(fa)
+    per_layer = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    check(all(c == per_layer for c in per_step),
+          f"launches per step (K1, K2, K3) {per_step}, expected {per_layer}")
+    same = [a == b and torch.equal(p, q) for a, b, p, q in zip(
+        losses, ref["losses"], prints, ref["fingerprints"])]
+    print(f"mesh: {MOE_PRESET} under tp_fsdp_rules(): losses {losses}; "
+          f"each step's loss and parameters' fp64 sums and norms bit-equal "
+          f"to 5f's: {same}; {MESH_STEPS} timed steps "
+          f"{[round(t * 1e3, 2) for t in step_s[MESH_WARMUP:]]} ms, mean "
+          f"{statistics.mean(step_s[MESH_WARMUP:]) * 1e3:.2f} ms/step (5f: "
+          f"{ref['ms_per_step']:.2f}), peak memory {peak / 2**30:.2f} GiB "
+          f"(5f: {ref['peak_gib']:.2f}); launches (K1, K2, K3) {counts}")
+    check(all(same), "the mesh's steps are not 5f's bit for bit")
+    del state, step, model, w_in, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rules = context_parallel_rules()
+    cfg13 = gpt.config(SERVE_PRESET, attn_impl="dot")
+    model = gpt.init(cfg13, torch.Generator(device=DEVICE).manual_seed(0),
+                     DEVICE, mesh=mesh, rules=rules)
+    logits = {}
+    with registered_mesh(mesh, rules):
+        for impl in ("dot", "ring", "ulysses"):
+            model.cfg = replace(cfg13, attn_impl=impl)
+            before = _counts(fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits[impl] = model(buf).float()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            model.reshard()
+            check(_counts(fa) == before, f"{impl} attention launched a "
+                  f"flash kernel")
+            print(f"mesh: {SERVE_PRESET} forward of {tuple(buf.shape)} under "
+                  f"context_parallel_rules(), attn_impl={impl!r}: "
+                  f"{wall * 1e3:.2f} ms (first call)")
+    for impl in ("ring", "ulysses"):
+        gap = float((logits[impl] - logits["dot"]).abs().max())
+        print(f"mesh: {impl} against dot attention on the sp mesh of one: "
+              f"max|dlogit| {gap:.4f} (bound {FLASH_VS_DOT_TOL}), bit-equal "
+              f"{torch.equal(logits[impl], logits['dot'])}")
+        check(bool(torch.isfinite(logits[impl]).all())
+              and gap <= FLASH_VS_DOT_TOL,
+              f"{impl} attention's logits disagree with dot's")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- 5e. checkpoints ----------------------------------------------------------
@@ -1595,7 +2065,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5e; returns the kernels line's rows."""
+    """Phases 2-5g; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -1603,8 +2073,9 @@ def _main_phases(torch):
     _timed("2", phase_build)
     k1 = _timed("3 (K1)", phase_kernel_check, torch)
     k2, k3 = _timed("3 (K2, K3)", phase_backward_check, torch)
-    k1_serve = _timed("4", phase_serving, torch)
+    k1_serve, buf13 = _timed("4", phase_serving, torch)
     _timed("4 (gpt-micro)", phase_small_reference, torch)
+    _timed("4 (gpt-moe-tiny)", phase_moe_small, torch)
     k1_llama_serve, buf, logits = _timed("4b", phase_llama_serving, torch)
     # A 1-rank NCCL process group and mesh, as a train worker builds them.
     mesh = prepare_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1))
@@ -1619,6 +2090,12 @@ def _main_phases(torch):
                                        mesh, ref)
     k1_ckpt, k2_ckpt, k3_ckpt = _timed("5e", phase_checkpoint, torch, mesh)
     _timed("5 (gpt-micro)", phase_small_training, torch)
+    (k1_moe, k2_moe, k3_moe), moe_ref = _timed("5f", phase_moe_training,
+                                               torch)
+    k1_moe_mesh, k2_moe_mesh, k3_moe_mesh = _timed(
+        "5g", phase_moe_mesh, torch, mesh, moe_ref, buf13)
+    del buf13, moe_ref
+    k1_moe_serve = _timed("4d", phase_moe_serving, torch)
     k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
     _timed("5c", phase_llama_small, torch)
     src = "ray_tpu_torch/ops/csrc/"
@@ -1627,13 +2104,16 @@ def _main_phases(torch):
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": ref + "37",
          "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
-                      + k1_mesh + k1_ckpt + k1_llama), **k1},
+                      + k1_mesh + k1_ckpt + k1_llama + k1_moe_serve + k1_moe
+                      + k1_moe_mesh), **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
-         "launches": k2_train + k2_mesh + k2_ckpt + k2_llama, **k2},
+         "launches": (k2_train + k2_mesh + k2_ckpt + k2_llama + k2_moe
+                      + k2_moe_mesh), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
-         "launches": k3_train + k3_mesh + k3_ckpt + k3_llama, **k3}]
+         "launches": (k3_train + k3_mesh + k3_ckpt + k3_llama + k3_moe
+                      + k3_moe_mesh), **k3}]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""GPT family — the dense path of ``ray_tpu/models/gpt.py`` in PyTorch:
-forward, loss and rematerialisation.
+"""GPT family — ``ray_tpu/models/gpt.py`` in PyTorch: forward, loss,
+rematerialisation, the mixture-of-experts FFN and sequence-parallel
+attention.
 
 Same configuration fields and presets, same parameter shapes and names
 (layers are a ``ModuleList`` here, where the JAX package stacks them on a
@@ -21,8 +22,17 @@ checkpointed (``torch.utils.checkpoint``) while gradients are recorded:
 ``"full"`` saves only the block's input and recomputes the block in the
 backward; ``"selective"`` also keeps the outputs of the block's matmuls
 and of the flash forward, so the backward recomputes only the cheap
-elementwise work. The MoE FFN and ring/Ulysses attention belong to later
-slices of the port.
+elementwise work.
+
+With ``n_experts > 0`` every block's FFN is the reference's top-k routed
+MoE (:func:`_moe_ffn`: capacity drop in (sequence, k) order, dense
+one-hot dispatch and combine, the Switch load-balancing term, which
+:func:`loss_fn` adds as ``router_aux_weight * aux``). On a mesh the
+experts are split over ``ep``; where the step splits the sequence over
+``sp`` (``rules.sequence == "sp"``), rotary positions are global,
+``attn_impl="ring"`` and ``"ulysses"`` run ``ops/ring_attention.py`` and
+``ops/ulysses.py`` on each rank's block, and dot or flash attention runs
+over the gathered sequence.
 """
 
 from __future__ import annotations
@@ -36,14 +46,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops import ring_attention as ring
+from ray_tpu_torch.ops import ulysses
 from ray_tpu_torch.ops.flash_attention import _flash_forward, flash_attention
-from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
-                                             TPShard, all_reduce, from_tp,
-                                             gather_tp, local, local_block,
-                                             shard_model, to_tp, tp_local)
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import current_mesh
+from ray_tpu_torch.parallel.sharding import (AxisShard, PartitionSpec,
+                                             ShardingRules, all_reduce,
+                                             ep_local,
+                                             from_tp, gather_tp, local,
+                                             local_block, shard_model, to_tp,
+                                             tp_local)
 
 
 @dataclass(frozen=True)
@@ -70,7 +87,8 @@ class GPTConfig:
     attn_blk_q: int = 512
     attn_blk_k: int = 512
     layernorm_eps: float = 1e-5
-    # Mixture-of-experts (a later slice of the port).
+    # Mixture-of-experts: n_experts > 0 replaces every block's dense FFN
+    # with a top-k routed MoE FFN (experts split over the "ep" mesh axis).
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -126,7 +144,7 @@ PRESETS: Dict[str, GPTConfig] = {
     "gpt-micro": GPTConfig(
         vocab_size=512, n_layers=4, d_model=128, n_heads=8, d_ff=512,
         rotary_dim=16, max_seq_len=256, dtype=torch.float32, remat=False),
-    # MoE variants (their FFN is a later slice of the port).
+    # MoE variants (expert parallelism over the "ep" mesh axis).
     "gpt-moe-tiny": GPTConfig(
         vocab_size=256, n_layers=2, d_model=64, n_heads=4, d_ff=128,
         rotary_dim=8, max_seq_len=128, dtype=torch.float32, remat=False,
@@ -210,9 +228,49 @@ def _check_local_heads(q, k, cfg) -> None:
             f"divides {cfg.kv_heads}")
 
 
+def _sequence_parallel_attention(q, k, v, impl: str):
+    """``attn_impl`` "ring" or "ulysses" over the current mesh's ``sp``
+    axis: on each rank's block where the step splits the sequence over
+    it, else on the whole sequence, split and gathered as the reference's
+    ``shard_map`` does."""
+    mesh = current_mesh()
+    if mesh is None or "sp" not in mesh.mesh_dim_names:
+        raise ValueError(
+            f"attn_impl={impl!r} needs a registered mesh with an 'sp' axis "
+            f"(parallel.mesh.registered_mesh; make_train_step/"
+            f"make_eval_step do this automatically)")
+    split = collectives.batch_layout()[1] is not None
+    if impl == "ring":
+        if split:
+            return ring.ring_attention(q, k, v, "sp", True, mesh)
+        return ring.make_ring_attention(mesh, "sp", True)(q, k, v)
+    if split:
+        return ulysses.ulysses_attention(q, k, v, "sp", mesh=mesh)
+    return ulysses.make_ulysses_attention(mesh, "sp", None)(q, k, v)
+
+
 def _attention(q, k, v, cfg: GPTConfig):
     """Causal attention on plain tensors (on a mesh, this rank's heads)."""
+    return _dispatch_attention(q, k, v, cfg, _local_attention)
+
+
+def _dispatch_attention(q, k, v, cfg, local_attention):
+    """``attn_impl`` "ring" and "ulysses" (GPT's and Llama's), else
+    ``local_attention(q, k, v, cfg)``: where the step splits the sequence
+    over sp, over the whole gathered sequence, keeping this rank's
+    rows."""
     _check_local_heads(q, k, cfg)
+    if cfg.attn_impl in ("ring", "ulysses"):
+        return _sequence_parallel_attention(q, k, v, cfg.attn_impl)
+    seq = collectives.batch_layout()[1]
+    if seq is None:
+        return local_attention(q, k, v, cfg)
+    S = q.shape[1]
+    q, k, v = (collectives.gather_sum(x, seq, 1) for x in (q, k, v))
+    return local_attention(q, k, v, cfg).narrow(1, seq.index * S, S)
+
+
+def _local_attention(q, k, v, cfg: GPTConfig):
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
@@ -223,10 +281,6 @@ def _attention(q, k, v, cfg: GPTConfig):
                                           cfg.attn_blk_k, saved),
             lambda: flash_attention(q, k, v, True, cfg.attn_blk_q,
                                     cfg.attn_blk_k))
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence parallelism) is a later "
-            f"slice of the port; use 'dot' or 'flash'")
     raise ValueError(f"Unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -286,8 +340,10 @@ class _SelectiveBlock(torch.autograd.Function):
     """One block under remat_policy="selective". The forward runs it
     without a graph and keeps its input and a :class:`_Recording`; the
     backward replays it with the kept values handed back, so it recomputes
-    LayerNorm, rotary, GELU and the casts (and dot attention), but no
-    matmul and no K1, and differentiates the replay."""
+    LayerNorm, rotary, GELU and the casts (and dot attention and the MoE
+    routing), but no dense matmul and no K1, and differentiates the
+    replay. Returns the block's output, and its MoE aux term for a MoE
+    config."""
 
     @staticmethod
     def forward(ctx, block, cfg, positions, x, *params):
@@ -295,15 +351,15 @@ class _SelectiveBlock(torch.autograd.Function):
         rec = _Recording()
         _RECORDING = rec
         try:
-            y = block(x, positions, cfg)
+            y, aux = block(x, positions, cfg)
         finally:
             _RECORDING = None
         ctx.block, ctx.cfg, ctx.recording = block, cfg, rec
         ctx.save_for_backward(positions, x)
-        return y
+        return (y, aux) if cfg.is_moe else y
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grad):
         global _RECORDING
         positions, x = ctx.saved_tensors
         params = list(ctx.block.parameters())
@@ -312,10 +368,11 @@ class _SelectiveBlock(torch.autograd.Function):
             x = x.detach().requires_grad_()
             _RECORDING = ctx.recording
             try:
-                y = ctx.block(x, positions, ctx.cfg)
+                y, aux = ctx.block(x, positions, ctx.cfg)
             finally:
                 _RECORDING = None
-            grads = torch.autograd.grad(y, [x] + params, grad)
+            outs = (y, aux) if ctx.cfg.is_moe else (y,)
+            grads = torch.autograd.grad(outs, [x] + params, grad)
         return (None, None, None, *grads)
 
 
@@ -331,8 +388,11 @@ def _remat_block(block: "Block", cfg: GPTConfig):
     if not torch.is_grad_enabled():
         return block
     if cfg.remat_policy == "selective":
-        return lambda x, positions, cfg: _SelectiveBlock.apply(
-            block, cfg, positions, x, *block.parameters())
+        def selective(x, positions, cfg):
+            out = _SelectiveBlock.apply(block, cfg, positions, x,
+                                        *block.parameters())
+            return out if cfg.is_moe else (out, None)
+        return selective
     return partial(checkpoint, block, use_reentrant=False)
 
 
@@ -358,22 +418,29 @@ class Block(nn.Module):
         self.wv = _empty((d, kvh, hd), cfg, device)
         self.wo = _empty((h, hd, d), cfg, device)
         self.b_out = _empty((d,), cfg, device)
-        self.w_in = _empty((d, f), cfg, device)
-        self.b_in = _empty((f,), cfg, device)
-        self.w_out = _empty((f, d), cfg, device)
+        if cfg.is_moe:
+            E = cfg.n_experts
+            self.router = _empty((d, E), cfg, device)
+            self.w_in = _empty((E, d, f), cfg, device)
+            self.b_in = _empty((E, f), cfg, device)
+            self.w_out = _empty((E, f, d), cfg, device)
+        else:
+            self.w_in = _empty((d, f), cfg, device)
+            self.b_in = _empty((f,), cfg, device)
+            self.w_out = _empty((f, d), cfg, device)
         if not cfg.parallel_block:
             self.ln2_scale = _empty((d,), cfg, device)
             self.ln2_bias = _empty((d,), cfg, device)
 
     def forward(self, x, positions, cfg: GPTConfig):
-        """x: [B, S, d] → [B, S, d]. On a tp mesh the heads and the MLP
-        columns of this rank's blocks; the residual stream is whole."""
+        """x: [B, S, d] → ([B, S, d], the MoE aux term or None). On a tp
+        mesh the heads and the MLP columns of this rank's blocks; the
+        residual stream is whole."""
         dt = cfg.dtype
         B, S, d = x.shape
         h = _layernorm(x, local(self.ln1_scale), local(self.ln1_bias),
                        cfg.layernorm_eps)
         wq, heads = tp_local(self.wq)
-        w_in, mlp = tp_local(self.w_in)
         h_attn = to_tp(h, heads)
 
         def proj(w):  # [d, heads, hd] → [B, S, heads, hd]
@@ -389,24 +456,126 @@ class Block(nn.Module):
                                    local(self.wo).to(dt).reshape(-1, d)),
                            heads)
 
-        if cfg.parallel_block:
+        if not cfg.parallel_block:
+            x = x + attn_out
+            h = _layernorm(x, local(self.ln2_scale), local(self.ln2_bias),
+                           cfg.layernorm_eps)
+        aux = None
+        if cfg.is_moe:
+            mlp_out, aux = _moe_ffn(cfg, h, self)
+        else:
+            w_in, mlp = tp_local(self.w_in)
             # GPT-J: the shared LN feeds both branches; through one entry
             # into the tp region when both are split, so that its gradient
             # sums in the order it does without a mesh.
-            mlp_in = (h_attn if (heads is None) == (mlp is None)
-                      else to_tp(h, mlp))
-        else:
-            x = x + attn_out
-            mlp_in = to_tp(_layernorm(x, local(self.ln2_scale),
-                                      local(self.ln2_bias),
-                                      cfg.layernorm_eps), mlp)
-        ff = F.gelu(_matmul(mlp_in, w_in.to(dt))
-                    + local(self.b_in).to(dt), approximate="tanh")
-        mlp_out = (from_tp(_matmul(ff, local(self.w_out).to(dt)), mlp)
-                   + local(self.b_out).to(dt))
+            mlp_in = (h_attn if cfg.parallel_block
+                      and (heads is None) == (mlp is None) else to_tp(h, mlp))
+            ff = F.gelu(_matmul(mlp_in, w_in.to(dt))
+                        + local(self.b_in).to(dt), approximate="tanh")
+            mlp_out = from_tp(_matmul(ff, local(self.w_out).to(dt)), mlp)
+        mlp_out = mlp_out + local(self.b_out).to(dt)
         if cfg.parallel_block:
-            return x + attn_out + mlp_out
-        return x + mlp_out
+            return x + attn_out + mlp_out, aux
+        return x + mlp_out, aux
+
+
+def _moe_ffn(cfg: GPTConfig, h, block: Block):
+    """The reference's ``_moe_ffn``: top-k routed mixture of experts with
+    capacity-based token drop → (out ``[B, S, d]``, this rank's share of
+    the load-balancing term).
+
+    An assignment's slot in its expert's buffer counts in (sequence, k)
+    order and assignments past the capacity ``C = max(1, int(capacity_
+    factor * S * K / E))`` are dropped, on the global S: where the step
+    splits the sequence over ``sp``, each rank's slots start after the
+    per-expert counts of the ranks before it. Dispatch and combine are
+    dense einsums against one-hot tensors. Over ``ep`` the router and the
+    aux term are computed whole on every rank; each rank dispatches, runs
+    and combines its own experts between the entry into the ``ep``
+    region (``to_tp``: identity forward, the gradient summed over ``ep``
+    backward), on ``h`` and the router's probabilities, and its exit
+    (``from_tp``: the output summed over ``ep``).
+
+    The aux term is ``E * Σ_e f_e · p_e`` (f: the share of tokens whose
+    top-1 choice is e; p: the mean router probability of e) over the
+    global batch: f is summed over the ranks the batch is split over, and
+    each rank's share takes its own p, so that the shares sum to it over
+    those ranks. Profiler ranges name the routing and the one-hot
+    dispatch and combine tensors (``moe.route``), the dispatch einsum
+    (``moe.dispatch``), the experts (``moe.experts``) and the combine
+    einsum (``moe.combine``)."""
+    dt = cfg.dtype
+    with record_function("moe.route"):
+        (probs, gate_idx, onehot, keep, cap_onehot, ep, mlp,
+         groups) = _moe_route(cfg, h, block)
+        gate_vals = torch.gather(to_tp(probs, ep), -1, gate_idx)
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+        dispatch = (keep[..., None] * cap_onehot).sum(2)  # [B, S, E, C]
+        combine = (gate_vals[..., None, None] * keep[..., None]
+                   * cap_onehot).sum(2)
+    with record_function("moe.dispatch"):
+        x_e = to_tp(torch.einsum("bsec,bsd->ebcd", dispatch.to(dt),
+                                 to_tp(h, ep)), mlp)
+    with record_function("moe.experts"):
+        w_in = tp_local(block.w_in)[0]
+        y = torch.einsum("ebcd,edf->ebcf", x_e, w_in.to(dt))
+        y = F.gelu(y + local(block.b_in)[:, None, None, :].to(dt),
+                   approximate="tanh")
+        y = from_tp(torch.einsum("ebcf,efd->ebcd", y,
+                                 local(block.w_out).to(dt)), mlp)
+    with record_function("moe.combine"):
+        out = from_tp(torch.einsum("bsec,ebcd->bsd", combine.to(dt), y),
+                      ep)
+
+    B, S, _ = h.shape
+    E = cfg.n_experts
+    n = B * S
+    f_e = onehot[:, :, 0, :].sum((0, 1))
+    for g in groups:
+        f_e = all_reduce(f_e, g.group)
+        n *= g.size
+    aux = E * torch.sum((f_e / n) * (probs.sum((0, 1)) / n))
+    return out, aux
+
+
+def _moe_route(cfg: GPTConfig, h, block: Block):
+    """:func:`_moe_ffn`'s routing: (the router's fp32 probabilities, each
+    token's top-k experts, their one-hot ``[B, S, K, E]``, which of them
+    keep a slot and that slot's one-hot ``[B, S, K, E here, C]`` for this
+    rank's experts, how the experts split over ``ep`` and their FFN over
+    ``tp``, the axes the batch is split over)."""
+    B, S, d = h.shape
+    E = cfg.n_experts
+    K = min(cfg.expert_top_k, E)
+    groups, seq = collectives.batch_layout()
+    C = max(1, int(cfg.capacity_factor * S * (seq.size if seq else 1) * K
+                   / E))
+
+    probs = torch.softmax(h.float() @ local(block.router).float(), dim=-1)
+    # Ties go to the lower expert index, as lax.top_k's.
+    gate_idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                          stable=True).indices[..., :K]  # [B, S, K]
+    onehot = F.one_hot(gate_idx, E).float()  # [B, S, K, E]
+    flat = onehot.reshape(B, S * K, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    if seq is not None:
+        counts = [torch.empty((B, E), device=h.device)
+                  for _ in range(seq.size)]
+        torch.distributed.all_gather(counts, flat.sum(1), group=seq.group)
+        for c in counts[:seq.index]:
+            pos = pos + c[:, None, :]
+    pos = pos.reshape(B, S, K, E)
+
+    w_in, mlp = tp_local(block.w_in)
+    ep = ep_local(block.w_in)
+    El = w_in.shape[0]
+    mine = slice(0, E) if ep is None else slice(ep.index * El,
+                                                (ep.index + 1) * El)
+    keep = (onehot * (pos < C))[..., mine]
+    cap_onehot = F.one_hot(pos[..., mine].clamp_max(C - 1).long(),
+                           C).float()
+    return probs, gate_idx, onehot, keep, cap_onehot, ep, mlp, groups
 
 
 class GPT(nn.Module):
@@ -416,10 +585,6 @@ class GPT(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(
-                "MoE GPT configs (n_experts > 0) are a later slice of the "
-                "port")
         dev = resolve_device(device)
         d, v = cfg.d_model, cfg.vocab_size
         self.cfg = cfg
@@ -440,18 +605,21 @@ class GPT(nn.Module):
         return self._hidden_states(tokens, positions)
 
     def _hidden_states(self, tokens, positions=None):
-        B, S = tokens.shape
         if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
+            positions = _positions(tokens)
         x = _embed(tokens, self.wte).to(self.cfg.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = _remat_block(block, self.cfg)(x, positions, self.cfg)
+            x, a = _remat_block(block, self.cfg)(x, positions, self.cfg)
+            if a is not None:
+                aux = aux + a
         x = _layernorm(x, local(self.lnf_scale), local(self.lnf_bias),
                        self.cfg.layernorm_eps)
-        # The MoE load-balancing term; 0 for the dense models served here.
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        # The summed MoE load-balancing term (0 for a dense model); where
+        # the step splits the batch, this rank's share of it.
+        return x, aux
 
-    def _head(self, x) -> Tuple[torch.Tensor, Optional[TPShard]]:
+    def _head(self, x) -> Tuple[torch.Tensor, Optional[AxisShard]]:
         """(logits: on a mesh this rank's block of the vocab, how the
         vocab is split over tp or None)."""
         dt = self.cfg.dtype
@@ -473,6 +641,16 @@ class GPT(nn.Module):
         return self.forward_with_aux(tokens, positions)[0]
 
 
+def _positions(tokens):
+    """Each token's position in its sequence, ``[B, S]``: global where
+    the step splits the sequence over ``sp`` (this rank holds block
+    ``index`` of it)."""
+    B, S = tokens.shape
+    seq = collectives.batch_layout()[1]
+    start = 0 if seq is None else seq.index * S
+    return (start + torch.arange(S, device=tokens.device)).expand(B, S)
+
+
 def _embed(tokens, wte):
     """``F.embedding(tokens, wte)``; on a vocab split over tp, this rank's
     rows (zero for ids outside its block) summed over the group."""
@@ -489,7 +667,7 @@ def _embed(tokens, wte):
 # -- loss ---------------------------------------------------------------
 
 def _ce_stats(logits, targets, mask, z_loss: float,
-              vocab: Optional[TPShard] = None):
+              vocab: Optional[AxisShard] = None):
     """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
     hits by first-max argmax, as ``jnp.argmax``. With ``vocab`` the slab
     is this rank's block of a vocab split over tp."""
@@ -506,7 +684,7 @@ def _ce_stats(logits, targets, mask, z_loss: float,
     return (nll * mask).sum(), (hits.float() * mask).sum()
 
 
-def _vocab_parallel_stats(logits, targets, vocab: TPShard):
+def _vocab_parallel_stats(logits, targets, vocab: AxisShard):
     """(logsumexp, target logit, first-max argmax == target) over the
     whole vocab from this rank's block ``[start, start + n)`` of the
     logits: explicit max and sum reductions over tp, no gathered logits.
@@ -535,26 +713,33 @@ def _batch_sum(x, groups):
     return x
 
 
-def _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups):
-    """(this rank's Σ nll over the global count of masked tokens, the
-    global {"loss", "accuracy", "perplexity"}). Summed over the ranks of
-    ``batch_groups``, the first is the global loss, so the gradients are
-    summed over them, never averaged."""
+def _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups, aux=None,
+                      aux_weight: float = 0.0):
+    """(this rank's Σ nll over the global count of masked tokens, plus
+    ``aux_weight`` times its share of the MoE aux term when there is one;
+    the global {"loss", "accuracy", "perplexity"}). Summed over the ranks
+    of ``batch_groups``, the first is the global loss, so the gradients
+    are summed over them, never averaged."""
     denom = torch.clamp_min(_batch_sum(mask32.sum(), batch_groups), 1.0)
-    ce = nll_sum / denom
-    loss = _batch_sum(nll_sum.detach(), batch_groups) / denom
+    share = nll_sum / denom
+    ce = _batch_sum(nll_sum.detach(), batch_groups) / denom
     acc = _batch_sum(hit_sum.detach(), batch_groups) / denom
+    loss = ce
+    if aux is not None:
+        share = share + aux_weight * aux
+        loss = ce + aux_weight * _batch_sum(aux.detach(), batch_groups)
     # Perplexity from the cross-entropy alone, as in the JAX package.
-    return ce, {"loss": loss, "accuracy": acc,
-                "perplexity": torch.exp(torch.clamp_max(loss, 20.0))}
+    return share, {"loss": loss, "accuracy": acc,
+                   "perplexity": torch.exp(torch.clamp_max(ce, 20.0))}
 
 
 def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
             batch_groups=()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy in fp32 (+ optional z-loss) → (loss,
+    """Next-token cross-entropy in fp32 (+ optional z-loss, and for a MoE
+    config ``router_aux_weight`` times the load-balancing term) → (loss,
     {"loss", "accuracy", "perplexity"}), all 0-d tensors on the model's
-    device.
+    device; perplexity is that of the cross-entropy alone.
 
     With ``cfg.loss_chunk > 0`` the head matmul and fp32 softmax run per
     chunk of tokens under a checkpoint, so one chunk's fp32 logits exist
@@ -566,7 +751,7 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
     the global mask count, as the JAX package's ``mask.sum()`` over the
     global batch, and the metrics are the global ones."""
     cfg = model.cfg
-    x, _ = model.hidden_states(tokens)
+    x, aux = model.hidden_states(tokens)
     B, S = tokens.shape
     if mask is None:
         mask32 = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -597,7 +782,9 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
             hit_sum = hit_sum + hit_c
     else:
         nll_sum, hit_sum = chunk_stats(x, targets, mask32)
-    return _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups)
+    return _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups,
+                             aux if cfg.is_moe else None,
+                             cfg.router_aux_weight)
 
 
 # -- parameters ---------------------------------------------------------
@@ -610,12 +797,8 @@ def param_specs(cfg: GPTConfig, rules: ShardingRules) -> Dict[str, Any]:
     layers are a ``ModuleList``, not a stacked axis)."""
     if rules.layers is not None:
         raise NotImplementedError(
-            f"rules.layers={rules.layers!r} (pipeline stages) waits for "
-            f"ROADMAP.md queue 1, item 8")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE GPT configs (n_experts > 0) are a later slice of the port "
-            "(ROADMAP.md queue 1, item 8)")
+            f"rules.layers={rules.layers!r} (the stacked layer axis over "
+            f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
     r = rules
     layers = {
         "ln1_scale": r.spec("embed"),
@@ -625,10 +808,16 @@ def param_specs(cfg: GPTConfig, rules: ShardingRules) -> Dict[str, Any]:
         "wv": r.spec("embed", "kv_heads", "head_dim"),
         "wo": r.spec("heads", "head_dim", "embed"),
         "b_out": r.spec("embed"),
-        "w_in": r.spec("embed", "mlp"),
-        "b_in": r.spec("mlp"),
-        "w_out": r.spec("mlp", "embed"),
     }
+    if cfg.is_moe:
+        layers["router"] = r.spec("embed", None)
+        layers["w_in"] = r.spec("expert", "embed", "mlp")
+        layers["b_in"] = r.spec("expert", "mlp")
+        layers["w_out"] = r.spec("expert", "mlp", "embed")
+    else:
+        layers["w_in"] = r.spec("embed", "mlp")
+        layers["b_in"] = r.spec("mlp")
+        layers["w_out"] = r.spec("mlp", "embed")
     if not cfg.parallel_block:
         layers["ln2_scale"] = r.spec("embed")
         layers["ln2_bias"] = r.spec("embed")
@@ -692,7 +881,7 @@ def init(cfg: GPTConfig, generator: torch.Generator,
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
-              "w_in": std, "wo": out_std, "w_out": out_std}
+              "w_in": std, "router": std, "wo": out_std, "w_out": out_std}
     return _draw(model, generator, normal,
                  lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
 

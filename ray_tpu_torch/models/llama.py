@@ -23,8 +23,10 @@ package's default 1024 x 1024 tiles, with k and v on their own KV heads;
 each block is checkpointed (``torch.utils.checkpoint``) while gradients
 are recorded, saving only its input, as ``jax.checkpoint`` with
 ``nothing_saveable`` does. :func:`loss_fn` is the JAX package's unchunked
-next-token cross-entropy. Ring and Ulysses attention belong to a later
-slice of the port.
+next-token cross-entropy. ``"ring"`` and ``"ulysses"`` are GPT's
+sequence-parallel attention (``models/gpt.py``), as the reference reuses
+them; where the step splits the sequence over ``sp``, positions are
+global.
 
 On a mesh (:func:`init` with ``mesh``, or ``sharding.shard_model`` by
 :func:`param_specs`) each block computes on its local ``tp`` blocks of
@@ -47,13 +49,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models.gpt import (_ce_stats, _check_local_heads,
+from ray_tpu_torch.models.gpt import (_ce_stats, _dispatch_attention,
                                       _dot_attention, _draw, _embed, _empty,
                                       _load_jax_params, _loss_and_metrics,
-                                      _placed, leaf_groups, to_jax_params)
+                                      _placed, _positions, leaf_groups,
+                                      to_jax_params)
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
-                                             TPShard, from_tp, gather_tp,
+                                             AxisShard, from_tp, gather_tp,
                                              local, to_tp, tp_local)
 
 
@@ -147,17 +150,16 @@ def _rotary(x, positions, theta):
 
 
 def _attention(q, k, v, cfg: LlamaConfig):
-    """Causal attention on plain tensors (on a mesh, this rank's heads)."""
-    _check_local_heads(q, k, cfg)
+    """Causal attention on plain tensors (on a mesh, this rank's heads);
+    "ring" and "ulysses" are GPT's, as the reference reuses them."""
+    return _dispatch_attention(q, k, v, cfg, _local_attention)
+
+
+def _local_attention(q, k, v, cfg: LlamaConfig):
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, True, 1024, 1024)
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence parallelism) is a later "
-            f"slice of the port (ROADMAP.md queue 1, item 8); use 'dot' or "
-            f"'flash'")
     raise ValueError(f"Unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -232,9 +234,8 @@ class Llama(nn.Module):
 
     def _hidden_states(self, tokens, positions=None):
         cfg = self.cfg
-        B, S = tokens.shape
         if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
+            positions = _positions(tokens)
         x = _embed(tokens, self.wte).to(cfg.dtype)
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
@@ -242,7 +243,7 @@ class Llama(nn.Module):
             x = block(x, positions, cfg)
         return _rmsnorm(x, local(self.final_norm), cfg.rms_eps)
 
-    def _head(self, x) -> Tuple[torch.Tensor, Optional[TPShard]]:
+    def _head(self, x) -> Tuple[torch.Tensor, Optional[AxisShard]]:
         """(logits: on a mesh this rank's block of the vocab, how the
         vocab is split over tp or None)."""
         dt = self.cfg.dtype
@@ -284,8 +285,8 @@ def param_specs(cfg: LlamaConfig, rules: ShardingRules) -> Dict[str, Any]:
     ``models.gpt.param_specs`` lays out GPT's."""
     if rules.layers is not None:
         raise NotImplementedError(
-            f"rules.layers={rules.layers!r} (pipeline stages) waits for "
-            f"ROADMAP.md queue 1, item 8")
+            f"rules.layers={rules.layers!r} (the stacked layer axis over "
+            f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
     r = rules
     layers = {
         "attn_norm": r.spec("embed"),

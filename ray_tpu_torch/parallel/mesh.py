@@ -9,9 +9,11 @@ order:
 * ``dp``   — data parallelism (parameters replicated, gradients summed);
 * ``fsdp`` — fully-sharded data parallelism (FSDP2 ``fully_shard``);
 * ``tp``   — tensor parallelism on heads, MLP and vocab (DTensor);
-* ``sp``, ``ep``, ``pp`` — sequence, expert and pipeline parallelism,
-  which the port accepts and resolves but cannot run at a size above 1
-  yet (``ROADMAP.md`` queue 1, item 8).
+* ``sp`` — sequence parallelism (ring or Ulysses attention, the batch's
+  columns split when ``rules.sequence == "sp"``);
+* ``ep`` — expert parallelism (each rank holds a block of the experts);
+* ``pp`` — pipeline stages (``parallel/pipeline.py``); a model whose
+  ``rules.layers`` is None is replicated over it.
 
 Ranks are laid out row-major over ``AXIS_ORDER`` (``init_device_mesh``'s
 layout), so ``dp`` is outermost: with ``slices > 1`` each slice is a
@@ -20,6 +22,7 @@ contiguous block of ranks, as the reference's fallback splits devices.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -123,21 +126,44 @@ def mesh_sizes(mesh) -> dict:
 
 
 # -- current-mesh registry ----------------------------------------------
-# Ops that need the ambient mesh (ring attention, a later slice) read it
-# here; make_train_step / make_eval_step set it around every call.
+# Ops that need the ambient mesh (ring and Ulysses attention, the MoE
+# layer's counts and aux term) read it here, with the rules that say how
+# the step's batch lies on it. make_train_step / make_eval_step make both
+# current for the length of each call (registered_mesh) and then restore
+# what was current before, so a forward outside a step never inherits a
+# step's layout.
 
 _CURRENT_MESH = None
+_CURRENT_RULES = None
 
 
-def set_current_mesh(mesh) -> None:
-    global _CURRENT_MESH
-    _CURRENT_MESH = mesh
+def set_current_mesh(mesh, rules=None) -> None:
+    global _CURRENT_MESH, _CURRENT_RULES
+    _CURRENT_MESH, _CURRENT_RULES = mesh, rules
+
+
+@contextlib.contextmanager
+def registered_mesh(mesh, rules=None):
+    """Make ``mesh`` and ``rules`` current for the body, then restore
+    what was current before."""
+    before = (_CURRENT_MESH, _CURRENT_RULES)
+    set_current_mesh(mesh, rules)
+    try:
+        yield
+    finally:
+        set_current_mesh(*before)
 
 
 def current_mesh():
     return _CURRENT_MESH
 
 
+def current_rules():
+    """The rules of the current mesh's batch, or None (the batch is
+    whole on every rank)."""
+    return _CURRENT_RULES
+
+
 __all__ = ["AXIS_ORDER", "BATCH_AXES", "MeshConfig", "build_mesh",
-           "current_mesh", "mesh_sizes", "set_current_mesh",
-           "single_device_mesh"]
+           "current_mesh", "current_rules", "mesh_sizes", "registered_mesh",
+           "set_current_mesh", "single_device_mesh"]

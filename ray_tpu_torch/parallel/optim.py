@@ -84,19 +84,24 @@ def _global_sums(values: List[torch.Tensor],
                  tensors: List[torch.Tensor]) -> torch.Tensor:
     """Stack ``values``, each a rank's sum over its local block of the
     matching tensor, into the sums over the whole tensors: for DTensors
-    summed over the mesh, each block counted on the first of the ranks
-    that replicate it."""
+    summed over every rank (the mesh spans the process group), each block
+    counted on the first of the ranks of its mesh that replicate it, and
+    divided by the count of copies of that mesh over the axes it leaves
+    out (``sp`` and ``pp``, or ``ep`` for a dense tensor), whose ranks
+    hold the same values."""
     sums = torch.stack(values)
-    placed = [t for t in tensors if isinstance(t, DTensor)]
-    if not placed:
+    if not any(isinstance(t, DTensor) for t in tensors):
         return sums
-    mesh = placed[0].device_mesh
-    coord = mesh.get_coordinate()
-    first = [all(coord[m] == 0 for m, pl in enumerate(t.placements)
-                 if isinstance(pl, Replicate)) for t in tensors]
-    sums = sums * torch.tensor(first, dtype=sums.dtype, device=sums.device)
-    for dim in range(mesh.ndim):  # over every rank, one axis at a time
-        dist.all_reduce(sums, group=mesh.get_group(dim))
+    world = dist.get_world_size()
+    weights = []
+    for t in tensors:
+        mesh = t.device_mesh
+        coord = mesh.get_coordinate()
+        first = all(coord[m] == 0 for m, pl in enumerate(t.placements)
+                    if isinstance(pl, Replicate))
+        weights.append(first / (world // mesh.size()))
+    sums = sums * torch.tensor(weights, dtype=sums.dtype, device=sums.device)
+    dist.all_reduce(sums)
     return sums
 
 

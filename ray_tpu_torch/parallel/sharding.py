@@ -9,10 +9,13 @@ port then places a model by those specs (:func:`shard_model`):
 
 * each parameter first becomes a ``DTensor`` over the ``tp`` axis, sharded
   on the dimension its spec puts on ``tp`` (Megatron-style tensor
-  parallelism on heads, MLP and vocab), or replicated;
+  parallelism on heads, MLP and vocab), or replicated; a MoE expert
+  tensor over ``(tp, ep)``, its expert dim on ``ep``;
 * then FSDP2's ``fully_shard`` shards every block and the root over the
   ``(dp, fsdp)`` sub-mesh, on the dimension the spec puts on ``fsdp``
-  (HSDP: replicated over ``dp``, sharded over ``fsdp``).
+  (HSDP: replicated over ``dp``, sharded over ``fsdp``). Every parameter
+  is replicated over ``sp`` and ``pp`` (``rules.layers``, the stacked
+  layer axis over ``pp``, is not ported: ``ROADMAP.md`` queue 1).
 
 Each rank's local block of a parameter is then the block that the JAX
 ``PartitionSpec`` assigns to its mesh position (:func:`shard_slices`).
@@ -164,16 +167,14 @@ def slices_overlap(a, b):
 
 # Placement on a mesh ---------------------------------------------------
 
-_WAITS = "ROADMAP.md queue 1, item 8"
-
-
 def check_mesh(mesh) -> None:
-    """The axes the port can run: ``sp``, ``ep`` and ``pp`` of size 1."""
-    for axis in ("sp", "ep", "pp"):
-        if mesh[axis].size() > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis}={mesh[axis].size()} (sequence, expert "
-                f"and pipeline parallelism) waits for {_WAITS}")
+    """The mesh is one of :func:`parallel.mesh.build_mesh`'s: its axes are
+    ``AXIS_ORDER``'s, in that order."""
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    if tuple(mesh.mesh_dim_names or ()) != AXIS_ORDER:
+        raise ValueError(f"a mesh with axes {mesh.mesh_dim_names}; the port "
+                         f"places models on build_mesh's {AXIS_ORDER}")
 
 
 def placements(mesh, spec) -> list:
@@ -214,9 +215,12 @@ def _spec_by_name(model: nn.Module, specs: Dict[str, Any]):
             yield name, specs[name]
 
 
+_PARAM_AXES = ("tp", "fsdp", "ep")
+
+
 def _check_param_spec(name: str, shape, spec, sizes: Dict[str, int]):
-    """Which dim goes on ``tp`` and which on ``fsdp`` (or None)."""
-    on = {"tp": None, "fsdp": None}
+    """{axis: the dim it shards, or None} for ``tp``, ``fsdp`` and ``ep``."""
+    on = dict.fromkeys(_PARAM_AXES)
     if len(spec) != len(shape):
         raise ValueError(f"{name}: spec {spec} for a tensor of shape "
                          f"{tuple(shape)}")
@@ -225,7 +229,7 @@ def _check_param_spec(name: str, shape, spec, sizes: Dict[str, int]):
         if len(axes) > 1 or (axes and axes[0] not in on):
             raise NotImplementedError(
                 f"{name}: spec {spec}; the port shards a parameter dim over "
-                f"one axis, 'fsdp' or 'tp'")
+                f"one axis, 'fsdp', 'tp' or 'ep'")
         if axes:
             axis = axes[0]
             if on[axis] is not None:
@@ -238,19 +242,21 @@ def _check_param_spec(name: str, shape, spec, sizes: Dict[str, int]):
                     f"over {axis}={sizes[axis]}; the port shards evenly "
                     f"(over tp the KV heads too, so that each rank keeps "
                     f"the model's grouping of query heads over KV heads)")
-    return on["tp"], on["fsdp"]
+    return on
 
 
 def shard_model(model: nn.Module, mesh, specs: Dict[str, Any]) -> nn.Module:
     """Place ``model`` (whose layers are its ``blocks``) on ``mesh`` by
     ``specs`` (its module's ``param_specs``), in place: DTensor over
-    ``tp``, then ``fully_shard`` over ``(dp, fsdp)`` per block and on the
-    root, which averages the gradients over the data ranks. A parameter
-    with no dim on ``fsdp`` while ``fsdp > 1`` (a bias under
-    ``fsdp_rules``) stays out of FSDP2, replicated over the data axes, and
-    :func:`average_replicated_grads` averages its gradient alike. On a
-    model on the meta device nothing is allocated; fill it after
-    ``to_empty``. Returns ``model``."""
+    ``tp`` (and over ``ep`` for a tensor with an expert dim), then
+    ``fully_shard`` over ``(dp, fsdp)`` per block and on the root, which
+    averages the gradients over the data ranks. A parameter with no dim
+    on ``fsdp`` while ``fsdp > 1`` (a bias under ``fsdp_rules``) stays out
+    of FSDP2, replicated over the data axes, and
+    :func:`average_replicated_grads` averages its gradient alike. Every
+    parameter is replicated over ``sp`` and ``pp``. On a model on the
+    meta device nothing is allocated; fill it after ``to_empty``.
+    Returns ``model``."""
     from torch.distributed.fsdp import (fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -262,19 +268,28 @@ def shard_model(model: nn.Module, mesh, specs: Dict[str, Any]) -> nn.Module:
         owner_name, _, leaf = name.rpartition(".")
         owner = model.get_submodule(owner_name)
         p = getattr(owner, leaf)
-        tp_dim, fsdp_d = _check_param_spec(name, p.shape, spec, sizes)
-        on_tp = Replicate() if tp_dim is None else Shard(tp_dim)
-        if fsdp_d is None and sizes["fsdp"] > 1:
-            value = distribute_tensor(p.detach(), mesh["dp", "fsdp", "tp"],
-                                      [Replicate(), Replicate(), on_tp])
+        on = _check_param_spec(name, p.shape, spec, sizes)
+        model_axes = ["tp"] + (["ep"] if on["ep"] is not None else [])
+        model_pl = [Replicate() if on[a] is None else Shard(on[a])
+                    for a in model_axes]
+        out_of_fsdp = on["fsdp"] is None and sizes["fsdp"] > 1
+        if out_of_fsdp:
+            value = distribute_tensor(p.detach(),
+                                      mesh["dp", "fsdp", *model_axes],
+                                      [Replicate(), Replicate(), *model_pl])
         else:
-            value = distribute_tensor(p.detach(), mesh["tp"], [on_tp])
+            value = distribute_tensor(p.detach(), mesh[tuple(model_axes)],
+                                      model_pl)
         placed = nn.Parameter(value, requires_grad=p.requires_grad)
         setattr(owner, leaf, placed)
-        if fsdp_d is None and sizes["fsdp"] > 1:
+        if out_of_fsdp:
             ignored.add(placed)
-        else:
-            fsdp_dim[id(placed)] = 0 if fsdp_d is None else fsdp_d
+        elif on["fsdp"] is not None:
+            fsdp_dim[id(placed)] = on["fsdp"]
+        else:  # fsdp has one rank: any dim, preferably one tp and ep keep
+            free = [d for d in range(p.dim())
+                    if d not in (on["tp"], on["ep"])]
+            fsdp_dim[id(placed)] = free[0] if free else 0
 
     def placement(param):
         return Shard(fsdp_dim[id(param)])
@@ -329,9 +344,10 @@ def local_block(full: torch.Tensor, param) -> torch.Tensor:
 
 # Tensor parallelism inside a module ------------------------------------
 
-class TPShard(NamedTuple):
-    """How a tensor's dim is split over the ``tp`` axis: the process
-    group, this rank's index in it and the number of blocks."""
+class AxisShard(NamedTuple):
+    """How a tensor's dim is split over a mesh axis (``tp``, ``ep``,
+    ``sp`` or ``pp``): the process group, this rank's index in it and the
+    number of blocks."""
     group: Any
     index: int
     size: int
@@ -343,11 +359,12 @@ def local(param) -> torch.Tensor:
     return param.to_local() if isinstance(param, DTensor) else param
 
 
-def tp_local(param) -> Tuple[torch.Tensor, Optional[TPShard]]:
+def tp_local(param) -> Tuple[torch.Tensor, Optional[AxisShard]]:
     """(``param``'s block on this rank, how it is split over ``tp`` or
     None when it is not). Inside a forward FSDP2 has gathered the
     parameter, so it is a plain tensor (no mesh) or a DTensor sharded over
-    ``tp`` alone; one still sharded over the data axes raises."""
+    ``tp`` and ``ep`` alone; one still sharded over the data axes
+    raises."""
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(param, DTensor):
@@ -355,7 +372,7 @@ def tp_local(param) -> Tuple[torch.Tensor, Optional[TPShard]]:
     mesh = param.device_mesh
     names = mesh.mesh_dim_names
     if any(isinstance(pl, Shard) for axis, pl in zip(names, param.placements)
-           if axis != "tp"):
+           if axis not in ("tp", "ep")):
         raise RuntimeError(
             f"a parameter is still sharded over the data axes ({names}, "
             f"{param.placements}): call the model (or its hidden_states) so "
@@ -363,9 +380,27 @@ def tp_local(param) -> Tuple[torch.Tensor, Optional[TPShard]]:
     pl = param.placements[names.index("tp")]
     if not isinstance(pl, Shard):
         return param.to_local(), None
-    return param.to_local(), TPShard(mesh.get_group("tp"),
+    return param.to_local(), AxisShard(mesh.get_group("tp"),
                                      mesh.get_local_rank("tp"),
                                      mesh.size(names.index("tp")))
+
+
+def ep_local(param) -> Optional[AxisShard]:
+    """How ``param``'s expert dim is split over ``ep``: None off a mesh,
+    when no dim is on ``ep``, or when ``ep`` has one rank."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(param, DTensor):
+        return None
+    mesh = param.device_mesh
+    names = mesh.mesh_dim_names
+    if "ep" not in names:
+        return None
+    m = names.index("ep")
+    if not isinstance(param.placements[m], Shard) or mesh.size(m) == 1:
+        return None
+    return AxisShard(mesh.get_group("ep"), mesh.get_local_rank("ep"),
+                   mesh.size(m))
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -404,7 +439,7 @@ class _GatherFromTP(torch.autograd.Function):
     rank's block of the gradient backward."""
 
     @staticmethod
-    def forward(ctx, x, shard: TPShard):
+    def forward(ctx, x, shard: AxisShard):
         ctx.shard, ctx.width = shard, x.shape[-1]
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(shard.size)]
@@ -417,20 +452,30 @@ class _GatherFromTP(torch.autograd.Function):
         return grad[..., start:start + ctx.width], None
 
 
-def to_tp(x: torch.Tensor, shard: Optional[TPShard]) -> torch.Tensor:
+def _alone(shard: Optional[AxisShard]) -> bool:
+    """No split, or a group of one: the collectives below are the
+    identity, and the autograd graph is the one without a mesh."""
+    return shard is None or shard.size == 1
+
+
+def to_tp(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
     """``x`` (the same on every rank of the group) entering products
-    with blocks split as ``shard``; ``x`` when ``shard`` is None."""
-    return x if shard is None else _CopyToTP.apply(x, shard.group)
+    with blocks split as ``shard``; ``x`` when ``shard`` is None. Over
+    ``ep`` it enters the experts' region."""
+    return x if _alone(shard) else _CopyToTP.apply(x, shard.group)
 
 
-def from_tp(x: torch.Tensor, shard: Optional[TPShard]) -> torch.Tensor:
-    """The sum over the group of the partial results ``x``."""
-    return x if shard is None else _ReduceFromTP.apply(x, shard.group)
+def from_tp(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
+    """The sum over the group of the partial results ``x`` (``lax.psum``);
+    backward, the gradient passes through: every rank computes the same
+    loss from the sum, and it counts once. Over ``ep`` it leaves the
+    experts' region; over ``pp`` it is the pipeline's masked sum."""
+    return x if _alone(shard) else _ReduceFromTP.apply(x, shard.group)
 
 
-def gather_tp(x: torch.Tensor, shard: Optional[TPShard]) -> torch.Tensor:
+def gather_tp(x: torch.Tensor, shard: Optional[AxisShard]) -> torch.Tensor:
     """The whole last dim of ``x``, whose blocks the group holds."""
-    return x if shard is None else _GatherFromTP.apply(x, shard)
+    return x if _alone(shard) else _GatherFromTP.apply(x, shard)
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -440,9 +485,9 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return out
 
 
-__all__ = ["MeshAxes", "PartitionSpec", "ShardingRules", "TPShard",
-           "all_reduce", "average_replicated_grads", "axis_split_bounds", "check_mesh",
-           "context_parallel_rules", "dp_rules", "from_tp", "fsdp_rules",
-           "gather_tp", "local", "local_block", "placements",
-           "shard_model", "shard_slices", "shard_tree", "slices_overlap",
-           "to_tp", "tp_fsdp_rules", "tp_local"]
+__all__ = ["AxisShard", "MeshAxes", "PartitionSpec", "ShardingRules",
+           "all_reduce", "average_replicated_grads", "axis_split_bounds",
+           "check_mesh", "context_parallel_rules", "dp_rules", "ep_local",
+           "from_tp", "fsdp_rules", "gather_tp", "local", "local_block",
+           "placements", "shard_model", "shard_slices", "shard_tree",
+           "slices_overlap", "to_tp", "tp_fsdp_rules", "tp_local"]

@@ -16,10 +16,13 @@ With ``mesh`` and ``rules`` the parameters are placed by
 ``gpt.param_specs`` (``sharding.shard_model``: DTensor over ``tp``, then
 FSDP2 over ``(dp, fsdp)``) and the step always runs that machinery, on a
 1-rank mesh too. Every rank passes the same global batch; each keeps its
-block of ``B`` by ``gpt.batch_spec``. The loss divides each rank's sum by
-the global mask count and is scaled by the count of batch blocks, so the
+block of ``B`` by ``gpt.batch_spec`` (and of ``S`` over ``sp`` when
+``rules.sequence == "sp"``). The loss divides each rank's sum by the
+global mask count and is scaled by the count of batch blocks, so the
 data ranks' average of gradients (FSDP2's reduction) is the global
-batch's gradient; the metrics are the global ones.
+batch's gradient; where the sequence is split, the gradients are then
+summed over ``sp`` (every parameter is replicated over it). The metrics
+are the global ones. Ranks over ``ep`` and ``pp`` see the same rows.
 """
 
 from __future__ import annotations
@@ -27,12 +30,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.parallel import optim
+from ray_tpu_torch.parallel import collectives, optim
 from ray_tpu_torch.parallel.mesh import (BATCH_AXES, mesh_sizes,
-                                         set_current_mesh)
+                                         registered_mesh)
 from ray_tpu_torch.parallel.sharding import (ShardingRules, _spec_dim_axes,
                                              average_replicated_grads,
                                              check_mesh, local, shard_slices)
@@ -73,11 +77,14 @@ def memory_efficient_optimizer(learning_rate=1e-4,
 
 class _Batching:
     """How the step's batch lies on the mesh (``gpt.batch_spec``): its
-    rows split into ``blocks`` over the batch axes, and the process groups
-    of those axes. No mesh: one block, no groups."""
+    rows split into ``blocks`` over the batch axes, its columns over
+    ``sp`` when the rules split the sequence (``seq``, the axis's shard,
+    None otherwise or on one rank), and the process groups of those axes.
+    No mesh: one block, no groups."""
 
     def __init__(self, mesh, rules: ShardingRules):
-        self.mesh, self.axes, self.groups, self.blocks = mesh, (), (), 1
+        self.mesh, self.rules = mesh, rules
+        self.axes, self.groups, self.blocks, self.seq = (), (), 1, None
         if mesh is None:
             return
         check_mesh(mesh)
@@ -87,10 +94,34 @@ class _Batching:
             raise NotImplementedError(
                 f"batch rule {rules.batch!r}: the port splits the batch "
                 f"over {BATCH_AXES} only")
+        if _spec_dim_axes(self.spec[1]) not in ((), ("sp",)):
+            raise NotImplementedError(
+                f"sequence rule {rules.sequence!r}: the port splits the "
+                f"sequence over 'sp' only")
         self.sizes = mesh_sizes(mesh)
-        self.groups = tuple(mesh.get_group(a) for a in self.axes)
+        self.groups = tuple(mesh.get_group(a) for a in
+                            self.axes + _spec_dim_axes(self.spec[1]))
+        self.seq = collectives.axis_shard(mesh, self.spec[1])
         for a in self.axes:
             self.blocks *= self.sizes[a]
+
+    def registered(self):
+        """Make the mesh and how the batch lies on it current for the
+        length of a step (the models' attention, positions and MoE layers
+        read them), then restore what was current before."""
+        return registered_mesh(self.mesh, self.rules)
+
+    def sum_over_sequence(self, grads) -> None:
+        """Sum each gradient's local block over ``sp``, where the sequence
+        is split (each rank's holds its own columns' part): one all-reduce
+        of the blocks flattened into one buffer."""
+        if self.seq is None:
+            return
+        blocks = [local(g) for g in grads]
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        dist.all_reduce(flat, group=self.seq.group)
+        for b, part in zip(blocks, flat.split([b.numel() for b in blocks])):
+            b.copy_(part.view_as(b))
 
     def local(self, batch: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
@@ -105,9 +136,13 @@ class _Batching:
                 raise ValueError(
                     f"batch[{k!r}] has {v.shape[0]} rows, which do not "
                     f"split evenly over {self.axes} ({self.blocks} blocks)")
-            rows = shard_slices(v.shape[:1], self.spec[:1], self.sizes,
-                                coords)[0]
-            out[k] = v[rows]
+            if self.seq is not None and v.shape[1] % self.seq.size:
+                raise ValueError(
+                    f"batch[{k!r}] has {v.shape[1]} columns, which do not "
+                    f"split evenly over sp={self.seq.size}")
+            rows, cols = shard_slices(v.shape[:2], self.spec, self.sizes,
+                                      coords)
+            out[k] = v[rows, cols]
         return out
 
 
@@ -192,6 +227,7 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None, rules=None,
             metrics = {k: metrics[k] + m[k] for k in METRICS}
         average_replicated_grads(params.values())
         grads = [p.grad for p in params.values()]
+        batching.sum_over_sequence(grads)
         for p in params.values():
             p.grad = None
         return grads, metrics
@@ -201,7 +237,10 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None, rules=None,
                  for k, v in batch.items()} for i in range(accum_steps)]
 
     def step(state, batch):
-        set_current_mesh(mesh)
+        with batching.registered():
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state["params"]
         _check_model(model, cfg)
         params = _params(model)
@@ -243,7 +282,10 @@ def make_eval_step(cfg: gpt.GPTConfig, mesh=None, rules=None) -> Callable:
     batching = _Batching(mesh, _rules(mesh, rules))
 
     def step(model, batch):
-        set_current_mesh(mesh)
+        with batching.registered():
+            return _step(model, batch)
+
+    def _step(model, batch):
         _check_model(model, cfg)
         batch = batching.local(batch)
         with torch.no_grad():

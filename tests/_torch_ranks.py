@@ -146,7 +146,13 @@ def mesh_layout(mesh_cfg):
 def gpt_train_step(preset, overrides, mesh_cfg, rules_name, opt_name,
                    params0, batches, accum):
     """Steps of the port's train step from the JAX parameters: this
-    rank's blocks before and after, the metrics of each step."""
+    rank's blocks before and after, the metrics of each step, and the
+    forward of an unplaced copy of the model (the logits and aux term of
+    the first batch's tokens) before the steps, after them on every rank,
+    and after them on rank 0 alone: a forward outside the steps must not
+    inherit their layout, nor wait for collectives of the other ranks."""
+    import dataclasses
+
     import torch
 
     from ray_tpu_torch.models import gpt
@@ -161,6 +167,17 @@ def gpt_train_step(preset, overrides, mesh_cfg, rules_name, opt_name,
     model = sharding.shard_model(gpt.from_jax_params(params0, cfg, "cpu"),
                                  mesh, gpt.param_specs(cfg, rules))
     before = _locals(model)
+    plain = gpt.from_jax_params(params0, dataclasses.replace(
+        cfg, attn_impl="dot" if cfg.attn_impl in ("ring", "ulysses")
+        else cfg.attn_impl), "cpu")
+
+    def plain_forward():
+        with torch.no_grad():
+            logits, aux = plain.forward_with_aux(
+                torch.from_numpy(batches[0]["tokens"]))
+        return logits.numpy(), float(aux)
+
+    plain_before = plain_forward()
     state = {"params": model,
              "opt_state": opt.init(dict(model.named_parameters()),
                                    gpt.leaf_groups(model)),
@@ -173,7 +190,10 @@ def gpt_train_step(preset, overrides, mesh_cfg, rules_name, opt_name,
         metrics.append({k: float(v) for k, v in m.items()})
     evals = ts.make_eval_step(cfg, mesh, rules)(
         model, {k: torch.from_numpy(v) for k, v in batches[0].items()})
+    plain_after = plain_forward()
+    alone = plain_forward() if torch.distributed.get_rank() == 0 else None
     return {"coords": _coords(mesh), "before": before,
+            "plain": (plain_before, plain_after, alone),
             "after": _locals(model), "metrics": metrics,
             "eval": {k: float(v) for k, v in evals.items()},
             "step": int(state["step"])}
@@ -343,6 +363,124 @@ def dcp_round_trip(preset, save_mesh, save_rules, load_mesh, load_rules,
             "step": int(target["step"]), "extra": ckpt.extra_metadata}
 
 
+def _grad_of_sum_sq(fn, *inputs):
+    """(fn(*inputs), the gradients of (fn(*inputs) ** 2).sum()), as numpy;
+    inputs are numpy arrays, or tensors that already require grad."""
+    import torch
+    xs = [torch.from_numpy(x).requires_grad_() if isinstance(x, np.ndarray)
+          else x for x in inputs]
+    out = fn(*xs)
+    grads = torch.autograd.grad((out ** 2).sum(), xs)
+    return out.detach().numpy(), [g.detach().numpy() for g in grads]
+
+
+def ring_whole(mesh_cfg, q, k, v):
+    """make_ring_attention over the mesh's sp axis on whole q, k, v: the
+    output and the gradients of its sum of squares."""
+    from ray_tpu_torch.ops.ring_attention import make_ring_attention
+    fn = make_ring_attention(_mesh(mesh_cfg), "sp")
+    out, grads = _grad_of_sum_sq(fn, q, k, v)
+    return {"out": out, "grads": grads}
+
+
+def ulysses_whole(mesh_cfg, q, k, v, odd_heads):
+    """make_ulysses_attention on whole q, k, v (split over (dp, fsdp) and
+    sp): the output, and the error it raises on ``odd_heads``."""
+    import torch
+
+    from ray_tpu_torch.ops.ulysses import make_ulysses_attention
+    attn = make_ulysses_attention(_mesh(mesh_cfg))
+    with torch.no_grad():
+        out = attn(*(torch.from_numpy(x) for x in (q, k, v)))
+        try:
+            attn(*(torch.from_numpy(odd_heads),) * 3)
+            error = None
+        except ValueError as exc:
+            error = str(exc)
+    return {"out": out.numpy(), "error": error}
+
+
+def pipeline_run(mesh_cfg, params, xs, placed):
+    """make_pipeline_fn over the mesh's pp axis with the tanh stage of
+    tests/test_parallel_extra.py; the stage parameters placed by
+    stage_param_specs (``placed``: each rank's grad is its own block), or
+    whole: the outputs and the gradients of their sum of squares."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel import (make_pipeline_fn, shard_tree,
+                                        stage_param_specs)
+    mesh = _mesh(mesh_cfg)
+    tree = {k: torch.from_numpy(v) for k, v in params.items()}
+    if placed:
+        tree = shard_tree(tree, mesh, stage_param_specs(tree))
+    tree = {k: v.requires_grad_() for k, v in tree.items()}
+
+    def stage_fn(p, x):
+        y = x @ p["w"]
+        return torch.tanh(y + p["b"] if "b" in p else y)
+
+    pipelined = make_pipeline_fn(stage_fn, mesh_cfg["pp"], mesh)
+    out = pipelined(tree, torch.from_numpy(xs))
+    names = sorted(tree)
+    grads = torch.autograd.grad((out ** 2).sum(), [tree[n] for n in names])
+    grads = {n: (g.to_local() if isinstance(g, DTensor) else g).numpy()
+             for n, g in zip(names, grads)}
+    return {"coords": _coords(mesh), "out": out.detach().numpy(),
+            "grads": grads}
+
+
+def pipeline_errors(mesh_cfg):
+    """make_pipeline_fn's ValueErrors: on a stage count that is not the
+    pp axis's size, and on a mesh with no pp axis."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_tpu_torch.parallel import make_pipeline_fn
+    errors = []
+    for mesh, n_stages in (
+            (_mesh(mesh_cfg), 2 * mesh_cfg["pp"]),
+            (init_device_mesh("cpu", (dist.get_world_size(),),
+                              mesh_dim_names=("sp",)), 2)):
+        try:
+            make_pipeline_fn(lambda p, x: x, n_stages, mesh)
+            errors.append(None)
+        except ValueError as exc:
+            errors.append(str(exc))
+    return errors
+
+
+def moe_layer(mesh_cfg, rules_name, overrides, params0, h):
+    """The first block's MoE FFN of gpt-moe-tiny on the mesh, its batch
+    laid out by the rules (made the current ones): this rank's rows and
+    columns of ``h`` in, its output block and share of the aux term
+    out."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+
+    mesh, rules = _mesh(mesh_cfg), _rules(rules_name)
+    cfg = gpt.config("gpt-moe-tiny", **overrides)
+    model = sharding.shard_model(gpt.from_jax_params(params0, cfg, "cpu"),
+                                 mesh, gpt.param_specs(cfg, rules))
+    coords = _coords(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    rows, cols = sharding.shard_slices(h.shape[:2], gpt.batch_spec(rules),
+                                       sizes, coords)
+    block = model.blocks[0]
+    block.unshard()
+    with registered_mesh(mesh, rules), torch.no_grad():
+        out, aux = gpt._moe_ffn(cfg, torch.from_numpy(h[rows, cols]), block)
+    block.reshard()
+    return {"coords": coords, "rows": (rows.start, rows.stop),
+            "cols": (cols.start, cols.stop), "out": out.numpy(),
+            "aux": float(aux)}
+
+
 CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
                                   llama_forward, tree_blocks, ckpt_save,
-                                  ckpt_restore, dcp_round_trip)}
+                                  ckpt_restore, dcp_round_trip, ring_whole,
+                                  ulysses_whole, pipeline_run,
+                                  pipeline_errors, moe_layer)}

@@ -348,6 +348,7 @@ OPTIMIZERS = {
                                                         warmup_steps=1),
 }
 MODELS = {"gpt": (jgpt, tgpt, "gpt-micro"),
+          "gpt-moe": (jgpt, tgpt, "gpt-moe-tiny"),
           "llama": (jllama, tllama, "llama-micro")}
 
 
@@ -362,7 +363,7 @@ def _port_state(model_name, opt_name, seed):
     _, tmod, preset = MODELS[model_name]
     cfg = tmod.config(preset)
     opt = OPTIMIZERS[opt_name](tts)
-    if model_name == "gpt":
+    if model_name != "llama":
         return tts.init_train_state(cfg, optimizer=opt, seed=seed,
                                     device="cpu"), opt
     model = tmod.init(cfg, torch.Generator().manual_seed(seed), "cpu")
@@ -378,7 +379,7 @@ def _port_step(model_name, opt, state, batch):
     _, tmod, _ = MODELS[model_name]
     model = state["params"]
     b = {k: torch.from_numpy(v) for k, v in batch.items()}
-    if model_name == "gpt":
+    if model_name != "llama":
         state, m = tts.make_train_step(model.cfg, optimizer=opt)(state, b)
         return state, float(m["loss"])
     named = dict(model.named_parameters())
@@ -408,7 +409,7 @@ def _port_flat(state):
 def _jax_step_fn(model_name, cfg, mesh, jopt):
     """The JAX package's step: its train step for GPT; for Llama (it has
     none) value_and_grad of loss_fn and the optimizer, jitted."""
-    if model_name == "gpt":
+    if model_name != "llama":
         step = jts.make_train_step(cfg, mesh, tp_fsdp_rules()
                                    if mesh.size > 1 else dp_rules(), jopt)
         return lambda state, b: step(state, {k: jnp.asarray(v)
@@ -460,7 +461,7 @@ def _jax_checkpoint(model_name, opt_name, tmp_path):
                       devices=jax.devices("cpu")[:8])
     jopt = OPTIMIZERS[opt_name](jts)
     with jax.default_matmul_precision("highest"):
-        if model_name == "gpt":
+        if model_name != "llama":
             state = jts.init_train_state(cfg, mesh, tp_fsdp_rules(), jopt)
         else:
             params = jmod.init(cfg, jax.random.PRNGKey(0))

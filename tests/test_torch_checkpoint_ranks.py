@@ -9,9 +9,10 @@ so ``restore_on_mesh``) and under the saved rules on two meshes of 4
 tp from 2 to 1). Every block a rank holds is the block its spec gives it
 of the saved tree, and the next step agrees with the JAX package's step
 on 4 fake devices from the same checkpoint (the bounds of
-``tests/test_torch_sharded.py``). Last, ``Checkpoint.from_sharded_state``
-(DCP) saves a model placed on one mesh of 4 and restores it into one
-placed on another.
+``tests/test_torch_sharded.py``). gpt-moe-tiny's state, its experts split
+over ``ep``, is saved by 8 ranks and resumed by 4 alike. Last,
+``Checkpoint.from_sharded_state`` (DCP) saves a model placed on one mesh
+of 4 and restores it into one placed on another.
 """
 
 import jax
@@ -214,3 +215,81 @@ def test_dcp_round_trip_on_four_ranks_into_another_layout(pools, tmp_path):
     for res in results:
         assert res["step"] == 7 and res["extra"] == {"step": 7}
         _check_blocks(res, params, specs, _sizes(dict(fsdp=4), 4), "params")
+
+
+MOE_PRESET = "gpt-moe-tiny"
+MOE_SAVE_MESH = dict(dp=2, fsdp=1, tp=1, sp=1, ep=4)
+MOE_RESTORES = [
+    # (mesh of 4, rules, the route restore_train_state takes)
+    pytest.param(dict(dp=1, fsdp=2, tp=1, sp=1, ep=2), "tp_fsdp_rules",
+                 "load_for_rank", id="fsdp2-ep2-saved_rules"),
+    pytest.param(dict(dp=1, fsdp=1, tp=1, sp=1, ep=4), "fsdp_rules",
+                 "restore_on_mesh", id="ep4-fsdp_rules"),
+]
+
+
+def _moe_batches(n, seed):
+    rng = np.random.default_rng(seed)
+    vocab = jgpt.config(MOE_PRESET).vocab_size
+    return [{"tokens": rng.integers(0, vocab, (B, S), dtype=np.int32),
+             "targets": rng.integers(0, vocab, (B, S), dtype=np.int32)}
+            for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def moe_saved(pools, tmp_path_factory):
+    """gpt-moe-tiny saved by 8 ranks (experts over ep=4) under
+    tp_fsdp_rules with Adafactor, after 2 steps."""
+    storage = str(tmp_path_factory.mktemp("moe-ckpt"))
+    results = pools[8].run("ckpt_save", MOE_PRESET, MOE_SAVE_MESH,
+                           "tp_fsdp_rules", "adafactor", storage,
+                           _moe_batches(2, seed=5))
+    return results, jsc.ShardedCheckpoint.from_manifest_uri(results[0]["uri"])
+
+
+def _spec_at(specs, path):
+    node = specs
+    for key in path.split("/"):
+        node = node[key]
+    return node
+
+
+@pytest.mark.parametrize("mesh_cfg,rules_name,route", MOE_RESTORES)
+def test_moe_experts_over_ep_saved_by_eight_resume_on_four(
+        pools, moe_saved, mesh_cfg, rules_name, route):
+    """Each of the 8 ranks saved its own experts' block; 4 ranks resume by
+    either route, hold their blocks of the saved parameters, and take the
+    JAX package's next step on 4 fake devices."""
+    results, ckpt = moe_saved
+    whole, _ = jsc.flatten_tree(ckpt.load_full())
+    w_in = whole["params/layers/w_in"]
+    for r in results:
+        block = r["blocks"]["params/layers/w_in"]
+        assert block.shape[1] == w_in.shape[1] // MOE_SAVE_MESH["ep"]
+    batch = _moe_batches(1, seed=6)[0]
+    cid = pools[4].submit("ckpt_restore", MOE_PRESET, mesh_cfg, rules_name,
+                          "adafactor", ckpt.uri, batch)
+    cfg, rules = jgpt.config(MOE_PRESET), getattr(jsharding, rules_name)()
+    mesh = build_mesh(MeshConfig(**mesh_cfg), devices=jax.devices("cpu")[:4])
+    jopt = OPTIMIZERS["adafactor"](jts)
+    with jax.default_matmul_precision("highest"):
+        state = _jax_state_on(mesh, ckpt.load_full(), jgpt, cfg, jopt, rules)
+        state, m = jts.make_train_step(cfg, mesh, rules, jopt)(state, batch)
+        after = jax.tree_util.tree_map(np.asarray, state["params"])
+    sizes = _sizes(mesh_cfg, 4)
+    specs = tgpt.param_specs(tgpt.config(MOE_PRESET),
+                             getattr(tsharding, rules_name)())
+    specs["layers"] = {k: (None,) + tuple(v)
+                       for k, v in specs["layers"].items()}
+    for r in pools[4].result(cid):
+        assert r["route"] == route and r["step"] == 3
+        for path, got in r["blocks"].items():
+            if path.startswith("params/"):
+                spec = jsc.normalize_spec(
+                    _spec_at(specs, path[len("params/"):]), got.ndim)
+                want = whole[path][jsc.shard_slices(
+                    whole[path].shape, spec, sizes, r["coords"])]
+                np.testing.assert_array_equal(got, want, err_msg=path)
+        assert r["loss"] == pytest.approx(float(m["loss"]), rel=STEP_RTOL)
+        _check_blocks(r, after, specs, sizes, "after", atol=PARAM_ATOL,
+                      rtol=STEP_RTOL)

@@ -94,6 +94,23 @@ def test_flash_kernel_at_the_training_shape(cuda):
     torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,dtype", [(12, torch.bfloat16),
+                                     (2, torch.float32)],
+                         ids=["bf16-training-shape", "fp32"])
+def test_flash_kernels_at_head_dim_64_and_s_1024(cuda, B, dtype):
+    """gpt-moe-8x410m's attention: 16 heads of 64, S=1024, causal (bf16 at
+    its training shape, B=12; the fp32 kernels at B=2): K1, then K2 and
+    K3, against the plain versions with 512x512 tiles."""
+    q, k, v = _qkv(B, 1024, 16, 16, 64, dtype, seed=13, device=cuda)
+    out, lse = fa._flash_forward(q, k, v, True, 512, 512)
+    ref_out, ref_lse = fa._flash_forward_reference(q, k, v, True, 512, 512)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=tol["lse"], rtol=1e-4)
+    _check_backward(q, k, v, True, 512, 512, seed=14)
+
+
 def test_ragged_length_takes_blockwise_route_without_a_launch(cuda):
     q, k, v = _qkv(1, 100, 4, 4, 64, torch.float32, seed=1, device=cuda)
     before = fa.launches

@@ -145,11 +145,17 @@ def test_init_shapes_and_distributions(preset):
 
 
 def test_moe_and_sequence_parallel_attention_wait_for_later_slices():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt.GPT(tgpt.config("gpt-moe-tiny"), device="cpu")
+    """Both have landed (tests/test_torch_moe.py,
+    tests/test_torch_seq_parallel.py): a MoE config builds its experts,
+    and ring attention without a mesh raises the reference's ValueError
+    (it needs a registered mesh with an sp axis)."""
+    cfg = tgpt.config("gpt-moe-tiny")
+    block = tgpt.GPT(cfg, device="cpu").blocks[0]
+    assert tuple(block.router.shape) == (cfg.d_model, cfg.n_experts)
+    assert tuple(block.w_in.shape) == (cfg.n_experts, cfg.d_model, cfg.d_ff)
     model = tgpt.init(tgpt.config("gpt-tiny", attn_impl="ring"),
                       torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(ValueError, match="'sp' axis"):
         model(torch.zeros((1, 8), dtype=torch.long))
 
 

@@ -51,6 +51,17 @@ def test_port_sources_exist():
     assert len(files) >= 10
 
 
+def test_sequence_expert_and_pipeline_modules_are_scanned():
+    """The modules of sequence, expert and pipeline parallelism are among
+    the files the boundary checks."""
+    scanned = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for module in ("ray_tpu_torch/ops/ring_attention.py",
+                   "ray_tpu_torch/ops/ulysses.py",
+                   "ray_tpu_torch/parallel/collectives.py",
+                   "ray_tpu_torch/parallel/pipeline.py"):
+        assert module in scanned, module
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_ray_tpu(path):

@@ -373,9 +373,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 @pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
 def test_sequence_parallel_attention_waits_for_a_later_slice(attn_impl):
+    """It has landed (GPT's, tests/test_torch_seq_parallel.py); without a
+    mesh it raises the reference's ValueError."""
     model = tllama.init(tllama.config("llama-tiny", attn_impl=attn_impl),
                         torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=attn_impl):
+    with pytest.raises(ValueError, match=f"{attn_impl}.*'sp' axis"):
         model(torch.zeros((1, 8), dtype=torch.long))
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from ray_tpu.models import gpt as jgpt
@@ -97,14 +97,30 @@ def test_build_mesh_lays_ranks_out_as_the_jax_mesh(fake_world, kwargs):
 
 
 def test_current_mesh_registry(fake_world):
+    """The eval step makes its mesh and rules current for the length of a
+    call, and then restores what was current before, also when the call
+    fails: a forward outside the step never inherits its layout."""
     mesh = tmesh.build_mesh(tmesh.MeshConfig(dp=2, fsdp=2, tp=2), "cpu")
     cfg = tgpt.config("gpt-micro")
+    rules = tsharding.tp_fsdp_rules()
+    seen = []
+
+    class Probe:  # the step reads model.cfg first
+        @property
+        def cfg(self):
+            seen.append((tmesh.current_mesh(), tmesh.current_rules()))
+            raise AttributeError("probe")
+
     assert tmesh.current_mesh() is None
-    step = tts.make_eval_step(cfg, mesh, tsharding.tp_fsdp_rules())
-    with pytest.raises(AttributeError):
-        step(object(), {})  # the mesh is registered before the call fails
-    assert tmesh.current_mesh() is mesh
-    tmesh.set_current_mesh(None)
+    step = tts.make_eval_step(cfg, mesh, rules)
+    outer = tmesh.build_mesh(tmesh.MeshConfig(dp=1, fsdp=8), "cpu")
+    with tmesh.registered_mesh(outer):
+        with pytest.raises(AttributeError, match="probe"):
+            step(Probe(), {})
+        assert seen == [(mesh, rules)]
+        assert tmesh.current_mesh() is outer
+        assert tmesh.current_rules() is None
+    assert tmesh.current_mesh() is None
 
 
 LOGICAL = [("layers", "embed", "heads", None), ("batch", "sequence"),
@@ -176,29 +192,61 @@ def test_param_specs_are_the_jax_specs_without_the_layer_axis(model, preset):
 
 
 def test_pipeline_rules_and_moe_wait_for_item_8():
+    """Item 8 has landed: the MoE specs are the JAX package's less the
+    layer axis under every preset. ``rules.layers`` (the stacked layer
+    axis over pipeline stages) still waits, for item 12."""
     pipeline = tsharding.ShardingRules(layers="pp")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tgpt.param_specs(tgpt.config("gpt-micro"), pipeline)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tllama.param_specs(tllama.config("llama-micro"), pipeline)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt.param_specs(tgpt.config("gpt-moe-tiny"),
-                         tsharding.tp_fsdp_rules())
+    for preset in PRESETS:
+        port = tgpt.param_specs(tgpt.config("gpt-moe-tiny"),
+                                getattr(tsharding, preset)())
+        ref = jgpt.param_specs(jgpt.config("gpt-moe-tiny"),
+                               getattr(jsharding, preset)())
+        assert sorted(port["layers"]) == sorted(ref["layers"])
+        for name, spec in ref["layers"].items():
+            assert tuple(port["layers"][name]) == tuple(spec)[1:], name
+    moe = tgpt.param_specs(tgpt.config("gpt-moe-tiny"),
+                           tsharding.tp_fsdp_rules())["layers"]
+    assert tuple(moe["w_in"]) == ("ep", "fsdp", "tp")
+    assert tuple(moe["router"]) == ("fsdp", None)
 
 
 @pytest.mark.parametrize("kwargs", [dict(fsdp=4, sp=2), dict(fsdp=4, ep=2),
                                     dict(fsdp=4, pp=2)])
 def test_sp_ep_pp_above_one_wait_for_item_8(fake_world, kwargs):
+    """Item 8 has landed: on rank 3 of 8 the experts are split over ep,
+    the batch's columns over sp, and everything is replicated over pp."""
     mesh = tmesh.build_mesh(tmesh.MeshConfig(**kwargs), "cpu")
-    cfg = tgpt.config("gpt-micro")
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     rules = tsharding.context_parallel_rules()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tts.make_train_step(cfg, mesh, rules)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tts.init_train_state(cfg, mesh, rules, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tllama.init(tllama.config("llama-micro"), torch.Generator(), "cpu",
-                    mesh=mesh, rules=rules)
+    cfg = tgpt.config("gpt-moe-tiny")
+    state = tts.init_train_state(cfg, mesh, rules, device="cpu")
+    params = dict(state["params"].named_parameters())
+    ep = kwargs.get("ep", 1)
+    w_in = params["blocks.0.w_in"]
+    names = w_in.device_mesh.mesh_dim_names
+    assert names == ("dp", "fsdp", "tp", "ep")
+    assert w_in.placements[names.index("ep")] == Shard(0)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    assert tuple(w_in.to_local().shape) == (E // ep, d // 4, f)
+    for name, p in params.items():  # pp and sp split nothing
+        assert not {"sp", "pp"} & set(p.device_mesh.mesh_dim_names), name
+    wq = params["blocks.0.wq"]
+    assert tuple(wq.to_local().shape) == (d // 4, cfg.n_heads, cfg.head_dim)
+    tokens = torch.arange(8 * 16).reshape(8, 16)
+    got = tts._Batching(mesh, rules).local({"tokens": tokens})["tokens"]
+    sp = kwargs.get("sp", 1)
+    rows, cols = 8 // 4, 16 // sp
+    assert torch.equal(got, tokens[coords["fsdp"] * rows:
+                                   (coords["fsdp"] + 1) * rows,
+                                   coords["sp"] * cols:
+                                   (coords["sp"] + 1) * cols])
+    tts.make_train_step(cfg, mesh, rules)
+    tllama.init(tllama.config("llama-micro"), torch.Generator(), "cpu",
+                mesh=mesh, rules=rules)
 
 
 def test_tp_that_splits_kv_heads_unevenly_raises(fake_world):

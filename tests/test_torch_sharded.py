@@ -107,6 +107,16 @@ def _check_blocks(result, params, specs, sizes, key, **tol):
             np.testing.assert_array_equal(got, want, err_msg=name)
 
 
+def _check_plain_forward(result):
+    """A forward of an unplaced copy of the model after the steps, on
+    every rank and on rank 0 alone, is bit-equal to the one before them:
+    the steps leave no mesh or batch layout behind."""
+    (logits, aux), after, alone = result["plain"]
+    for got in (after,) + ((alone,) if alone is not None else ()):
+        np.testing.assert_array_equal(got[0], logits)
+        assert got[1] == aux
+
+
 STEP_CASES = [
     # (mesh, rules, attn_impl, optimizer, accum_steps, uneven mask)
     pytest.param(dict(dp=2, fsdp=2, tp=2), "tp_fsdp_rules", "flash",
@@ -161,6 +171,7 @@ def test_train_step_matches_jax_on_the_same_mesh(pools, mesh_cfg, rules_name,
         for k, v in want_eval.items():
             assert r["eval"][k] == pytest.approx(float(v), rel=STEP_RTOL), k
         _check_blocks(r, params0, specs, sizes, "before")
+        _check_plain_forward(r)
         _check_blocks(r, params1, specs, sizes, "after", atol=PARAM_ATOL,
                       rtol=STEP_RTOL)
 
