@@ -89,6 +89,22 @@ printed:
    ``context_parallel_rules()`` runs forward on phase 4's last buffer
    under ``attn_impl`` "ring" and "ulysses" (over an sp of one), each
    within the bf16 bound of "dot" and launching no kernel.
+   4e (after 5c): the diffusion UNet served through the port's
+   ``@serve.batch``, as ``examples/serve_diffusion.py`` deploys it:
+   ddpm-cifar at bench.py's program (64 concurrent requests of one x_T
+   each, 50 DDIM steps, eta 0) and sd-base (8 requests), bf16 compute over
+   seeded random fp32 weights; the requests must coalesce into one sampler
+   call; images/s and ms per DDIM step; the same x_T sampled in fp32 on
+   the card and the bf16 images held to it; a profile of one forward
+   (convolutions, GEMMs, the rest); unet-tiny in fp32 on the card against
+   the CPU (one forward, a 10-step sample). 5h: ddpm-cifar (batch 128),
+   vit-b16 (64 images of 224x224), bert-base (32 x 512, 15% masked) and
+   t5-base (16 x 512 + 128) trained with AdamW at weight decay 0, 2
+   warm-up and 4 timed steps each: ms per step, items/s, peak memory, the
+   step-0 loss held to its random-init value, every parameter the loss
+   reaches moved, a profile of one step; then vit-tiny, bert-tiny and
+   t5-tiny in fp32 on the card against the CPU (forward and first
+   gradients). None of these models launches K1-K3.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b" and gpt-moe-8x410m's under
@@ -253,6 +269,56 @@ NUM_SLOTS, SEQ = 4, 1024
 N_REQUESTS, MAX_NEW = 8, 16
 ARRIVAL_STEPS = 2
 PROMPT_LENS = (32, 512)
+# Phase 4e: the diffusion UNet served through the port's @serve.batch, as
+# examples/serve_diffusion.py deploys it: (preset, concurrent requests =
+# max_batch_size). ddpm-cifar at bench.py's program (bench_diffusion: batch
+# 64, 50 DDIM steps, eta 0); sd-base, the SD-shaped latent UNet of the
+# example, at batch 8.
+DIFF_SERVE = (("ddpm-cifar", 64), ("sd-base", 8))
+DIFF_STEPS = 50
+# The bf16 images against the same sampler in fp32 from the same x_T. x0 is
+# clipped to [-3, 3], so pixels reach |3|, where a bf16 ulp is 2^-6; the
+# gap is bf16 rounding carried through 50 steps, and on the CPU at batch
+# 1-2 (tests/measure_unet_bf16_gap.py) it was of the same size in both
+# packages, about 1.5 ulps at the top of the range. 2^-4 is 4 ulps there; a
+# wrong timestep, schedule or cast moves pixels by O(0.1-1).
+DIFF_BF16_TOL = 2.0 ** -4
+# unet-tiny in fp32, 10 DDIM steps on the card against the CPU from one
+# x_T: fp32 sums in different orders, carried through 10 steps (the images
+# reach |3|); the CPU parity test holds the port to JAX at 1e-5.
+UNET_TINY_TOL = 1e-4
+# Phase 5h: training each of the zoo's models at full width with AdamW at
+# weight decay 0 (optax.adam's arithmetic), lr 1e-4, 2 warm-up and 4 timed
+# steps; the batches are random, drawn on the card from a seeded generator.
+ZOO_WARMUP, ZOO_STEPS, ZOO_LR = 2, 4, 1e-4
+# Batches: DDPM's CIFAR-10 batch; ViT-B/16's 224x224 images; BERT's 512
+# tokens, 15% masked; T5's 512 encoder and 128 decoder tokens.
+ZOO_BATCH = {"ddpm-cifar": 128, "vit-b16": 64, "bert-base": 32,
+             "t5-base": 16}
+# Step-0 losses of the random initialisations, each with its bound:
+# - ddpm-cifar: conv_out is drawn at 1e-2 of its fan-in scale, so the
+#   predicted noise is ~0.03 and the MSE is E[eps^2] = 1 (the mean over
+#   128 x 3072 draws of eps^2 has std 0.002);
+# - vit-b16: after the final LayerNorm each unit has variance 1, so a logit
+#   of the N(0, 0.02^2) head has std 0.02 sqrt(768) = 0.554 and the
+#   cross-entropy of a random label is ln(1000) + 0.554^2 / 2 = 7.061; the
+#   target logit's mean over 64 labels has std 0.07;
+# - bert-base: the MLM transform ends in a LayerNorm and the tied wte is
+#   N(0, 0.02^2), so as vit-b16's: ln(30522) + 0.554^2 / 2 = 10.480, over
+#   ~2460 masked positions;
+# - t5-base: the head is rmsnorm(x) d^-0.5 . wte with wte N(0, 1/d), so a
+#   logit has std d^-0.5 = 0.036 and the loss is ln(32128) + 1/(2d) =
+#   10.378.
+ZOO_LOSS0 = {"ddpm-cifar": (1.0, 0.02), "vit-b16": (7.061, 0.35),
+             "bert-base": (10.480, 0.2), "t5-base": (10.378, 0.05)}
+# vit-tiny, bert-tiny and t5-tiny in fp32 on the card against the CPU: the
+# logits to the CPU parity tests' bound (summation order), the first
+# gradients as each tensor's difference over its norm, or over
+# ZOO_GRAD_FLOOR of the largest tensor's where its own is smaller: BERT's
+# bk has a zero gradient but for rounding (softmax ignores a shift that
+# every key shares), so its own norm is noise.
+ZOO_TINY_TOL = 1e-4
+ZOO_GRAD_FLOOR = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1081,14 +1147,15 @@ def _profile_step(torch, model, buf):
     _profile(torch, forward, f"one forward of [{NUM_SLOTS}, {SEQ}]", 8)
 
 
-def _profile(torch, fn, what, top, expect=(), ranges=()):
+def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
     """Run fn once under torch.profiler and print its device time by
     kernel, the top ``top`` kernels by device time, the port's flash
     kernels by name, and the step's time on the host clock. Each name in
     ``expect`` must be among the kernels the profiler saw. For each of
     the ``record_function`` ``ranges``, the device time of the kernels
     launched inside it (forward and remat's replay; the backward's
-    kernels run outside it)."""
+    kernels run outside it). With ``convs``, cuDNN's convolution kernels
+    are a class of their own, counted before the GEMMs."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1120,10 +1187,17 @@ def _profile(torch, fn, what, top, expect=(), ranges=()):
     check(not missing, f"the profile saw no {missing}")
     classes = {"the port's flash kernels": ("flash_",),
                "GEMMs (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma")}
-    rest = total
+    if convs:
+        classes = {"convolutions (cuDNN)": (
+            "fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm", "winograd",
+            "convolve", "nchwtonhwc", "nhwctonchw"), **classes}
+    rest, seen = total, set()
     for label, keys in classes.items():
-        t = sum(e.self_device_time_total for e in events
-                if any(k in e.key for k in keys))
+        mine = [e for e in events if e.key not in seen
+                and any(k in (e.key.lower() if label.startswith("conv")
+                              else e.key) for k in keys)]
+        seen.update(e.key for e in mine)
+        t = sum(e.self_device_time_total for e in mine)
         rest -= t
         print(f"  by class: {label} {t / 1e3:.3f} ms ({t / total:.1%})")
     print(f"  by class: everything else {rest / 1e3:.3f} ms "
@@ -2026,6 +2100,283 @@ def phase_llama_small(torch):
           "llama-micro training on the card disagrees with the CPU")
 
 
+# -- 4e, 5h. the model zoo -------------------------------------------------
+
+def _unet_sampler(torch, serve, diffusion, model, max_batch):
+    """What examples/serve_diffusion.py deploys, without the runtime: an
+    object whose @serve.batch method takes one x_T per request and runs
+    one DDIM call per coalesced batch."""
+    class Sampler:
+        @serve.batch(max_batch_size=max_batch, batch_wait_timeout_s=0.05)
+        async def __call__(self, x_T_list):
+            x_T = torch.stack(x_T_list)
+            return list(diffusion.ddim_sample(model, None, len(x_T_list),
+                                              DIFF_STEPS, x_T=x_T))
+    return Sampler()
+
+
+def phase_diffusion_serving(torch):
+    """ddpm-cifar and sd-base (bf16 compute over fp32 parameters, seeded
+    random weights) served through the port's @serve.batch: concurrent
+    requests coalesce into one 50-step DDIM call; then the same x_T
+    sampled in fp32 on the card, and the bf16 images held to it."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import diffusion
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    _zero_counts(fa)
+    for preset, batch in DIFF_SERVE:
+        cfg = diffusion.config(preset)
+        model = diffusion.init(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        shape = (batch, cfg.image_size, cfg.image_size, cfg.in_channels)
+        x_T = torch.randn(shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(1), device=DEVICE)
+        n_params = sum(p.numel() for p in model.parameters())
+        diffusion.ddim_sample(model, None, batch, 2, x_T=x_T)  # warm
+        torch.cuda.synchronize()
+        sampler = _unet_sampler(torch, serve, diffusion, model, batch)
+
+        async def requests():
+            return await asyncio.gather(*(sampler(x) for x in x_T))
+
+        t0 = time.perf_counter()
+        images = torch.stack(asyncio.run(requests()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = type(sampler).__call__.batch_stats(sampler)
+        check(stats["batches"] == 1 and stats["last_batch_size"] == batch,
+              f"{preset}: {batch} concurrent requests ran as "
+              f"{stats['batches']} batches (last {stats['last_batch_size']})")
+        check(images.shape == shape and bool(torch.isfinite(images).all()),
+              f"{preset}: images of shape {tuple(images.shape)}, or not "
+              f"finite")
+        ref_model = diffusion.UNet(diffusion.config(
+            preset, dtype=torch.float32), DEVICE)
+        ref_model.load_state_dict(model.state_dict())
+        t1 = time.perf_counter()
+        ref = diffusion.ddim_sample(ref_model, None, batch, DIFF_STEPS,
+                                    x_T=x_T)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t1
+        gap = float((images - ref).abs().max())
+        rms = float((images - ref).pow(2).mean().sqrt())
+        print(f"serve: {preset} ({n_params:,} params, stages "
+              f"{cfg.stage_channels} at {cfg.image_size}x{cfg.image_size}x"
+              f"{cfg.in_channels}), bf16: {batch} concurrent requests -> "
+              f"batch_stats {stats['batches']} batch of "
+              f"{stats['last_batch_size']}; {DIFF_STEPS} DDIM steps in "
+              f"{wall * 1e3:.2f} ms: {batch / wall:.2f} images/s, "
+              f"{wall / DIFF_STEPS * 1e3:.3f} ms per DDIM step (host clock, "
+              f"synchronised); fp32 on the card {ref_wall * 1e3:.2f} ms; "
+              f"max|bf16 - fp32| {gap:.4f} (RMS {rms:.5f}, bound "
+              f"{DIFF_BF16_TOL}), max|pixel| {float(ref.abs().max()):.3f}")
+        check(gap <= DIFF_BF16_TOL,
+              f"{preset}: bf16 images {gap} from the fp32 sampler's")
+        def forward():
+            with torch.inference_mode():
+                diffusion.forward(model, x_T,
+                                  torch.full((batch,), 999, device=DEVICE))
+        _profile(torch, forward,
+                 f"one bf16 UNet forward of {preset} at batch {batch}", 8,
+                 convs=True)
+        del model, ref_model, images, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(_counts(fa) == (0, 0, 0), "the UNet launched a flash kernel")
+
+    # unet-tiny in fp32, card against CPU.
+    cfg = diffusion.config("unet-tiny")
+    cpu = diffusion.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = diffusion.UNet(cfg, DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    x_T = torch.randn((2, 16, 16, 3),
+                      generator=torch.Generator().manual_seed(1))
+    t = torch.tensor([3, 40])
+    with torch.inference_mode():
+        fwd = float((card(x_T.to(DEVICE), t.to(DEVICE)).cpu()
+                     - cpu(x_T, t)).abs().max())
+    ref = diffusion.ddim_sample(cpu, None, 2, 10, x_T=x_T)
+    got = diffusion.ddim_sample(card, None, 2, 10, x_T=x_T.to(DEVICE)).cpu()
+    sample = float((got - ref).abs().max())
+    print(f"unet-tiny fp32, card vs CPU: forward max|d| {fwd:.3e}, 10-step "
+          f"DDIM sample max|d| {sample:.3e} (bound {UNET_TINY_TOL:.0e})")
+    check(fwd <= UNET_TINY_TOL and sample <= UNET_TINY_TOL,
+          "unet-tiny on the card disagrees with the CPU")
+
+
+def _zoo_training_cases(torch):
+    """(preset, module, config, make_batch(generator) -> the loss's
+    arguments after the model, loss(model, *batch) -> 0-d tensor, what an
+    item of the batch is) of phase 5h."""
+    from ray_tpu_torch.models import bert, diffusion, t5, vit
+    B = ZOO_BATCH
+
+    def unet_batch(g):
+        return (torch.rand((B["ddpm-cifar"], 32, 32, 3), generator=g,
+                           device=DEVICE) * 2 - 1, g)
+
+    def vit_batch(g):
+        n = B["vit-b16"]
+        return (torch.randn((n, 224, 224, 3), generator=g, device=DEVICE),
+                torch.randint(0, 1000, (n,), generator=g, device=DEVICE))
+
+    def bert_batch(g):
+        shape = (B["bert-base"], 512)
+        targets = torch.randint(0, 30522, shape, generator=g, device=DEVICE)
+        masked = torch.rand(shape, generator=g, device=DEVICE) < 0.15
+        return (torch.where(masked, 103, targets), targets, masked.float())
+
+    def t5_batch(g):
+        n = B["t5-base"]
+        return tuple(torch.randint(0, 32128, (n, s), generator=g,
+                                   device=DEVICE) for s in (512, 128, 128))
+
+    return [
+        ("ddpm-cifar", diffusion, diffusion.config("ddpm-cifar"), unet_batch,
+         lambda m, images, g: diffusion.loss_fn(m, images, g)[0],
+         "images 32x32x3"),
+        ("vit-b16", vit, vit.config("vit-b16"), vit_batch,
+         lambda m, *b: vit.loss_fn(m, *b)[0], "images 224x224x3"),
+        ("bert-base", bert, bert.config("bert-base"), bert_batch,
+         bert.mlm_loss, "sequences of 512, 15% masked"),
+        ("t5-base", t5, t5.config("t5-base"), t5_batch,
+         lambda m, *b: t5.loss_fn(m, *b)[0], "pairs of 512 + 128 tokens"),
+    ]
+
+
+def _zoo_step(torch, optim, loss_fn, model, params, opt, opt_state, batch):
+    """One training step: the loss, its gradients (zeros where the loss
+    does not reach a parameter, as jax.grad's), AdamW's update in place."""
+    loss = loss_fn(model, *batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    unused = [n for n, g in zip(params, grads) if g is None]
+    with torch.no_grad():
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        updates, opt_state = opt.update(grads, opt_state, params)
+        optim.apply_updates(params, updates)
+    return opt_state, loss.detach(), unused
+
+
+def phase_zoo_training(torch):
+    """ddpm-cifar, vit-b16, bert-base and t5-base trained at full width
+    (bf16 compute over fp32 parameters, the presets' own remat) with the
+    port's AdamW at weight decay 0: 2 warm-up and 4 timed steps each."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import optim
+
+    _zero_counts(fa)
+    for (preset, module, cfg, make_batch, loss_fn,
+         what) in _zoo_training_cases(torch):
+        items = ZOO_BATCH[preset]
+        t0 = time.perf_counter()
+        model = module.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            DEVICE)
+        params = dict(model.named_parameters())
+        opt = optim.adamw(lambda c: torch.full((), ZOO_LR, device=DEVICE),
+                          weight_decay=0.0)
+        opt_state = opt.init(params, module.leaf_groups(model))
+        batch = make_batch(torch.Generator(device=DEVICE).manual_seed(1))
+        before = _fingerprint(torch, params)
+        n_params = sum(p.numel() for p in params.values())
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses, step_s = [], []
+        for i in range(ZOO_WARMUP + ZOO_STEPS):
+            if i == ZOO_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            opt_state, loss, unused = _zoo_step(
+                torch, optim, loss_fn, model, params, opt, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        moved = (_fingerprint(torch, params) != before).any(dim=1).tolist()
+        still = [n for n, m in zip(params, moved) if not m]
+        loss0, tol = ZOO_LOSS0[preset]
+        timed = step_s[ZOO_WARMUP:]
+        mean_s = statistics.mean(timed)
+        print(f"train: {preset} ({n_params:,} params), batch {items} "
+              f"{what}, remat {getattr(cfg, 'remat', False)}, AdamW lr "
+              f"{ZOO_LR} wd 0; initialised in {init_s:.2f} s; losses "
+              f"{[round(x, 5) for x in losses]} (step 0 within {tol} of "
+              f"{loss0}); {ZOO_STEPS} timed steps "
+              f"{[round(t * 1e3, 2) for t in timed]} ms, mean "
+              f"{mean_s * 1e3:.2f} ms/step (std "
+              f"{statistics.pstdev(timed) * 1e3:.2f}), {items / mean_s:.2f} "
+              f"items/s; peak memory {peak / 2**30:.2f} GiB; the loss does "
+              f"not reach {unused or 'none'}")
+        check(np.isfinite(losses).all() and abs(losses[0] - loss0) <= tol,
+              f"{preset}: step-0 loss {losses[0]} is not within {tol} of "
+              f"{loss0}")
+        check(set(still) == set(unused),
+              f"{preset}: parameters {sorted(set(still) ^ set(unused))} "
+              f"moved against their gradients' reach")
+        _profile(torch, lambda: _zoo_step(torch, optim, loss_fn, model,
+                                          params, opt, opt_state, batch),
+                 f"one training step of {preset}", 10, convs=True)
+        del model, params, opt_state, batch, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(_counts(fa) == (0, 0, 0), "the zoo's models launched a flash "
+          "kernel")
+
+
+def phase_zoo_small(torch):
+    """vit-tiny, bert-tiny and t5-tiny in fp32 on the card against the CPU
+    from the same weights and inputs: the forward and the first
+    gradients."""
+    from ray_tpu_torch.models import bert, t5, vit
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 256, (2, 16), generator=g)
+    mask = torch.ones((2, 16), dtype=torch.long)
+    mask[1, 10:] = 0
+    cases = {
+        "vit-tiny": (vit, lambda m, *b: vit.forward(m, b[0]),
+                     lambda m, *b: vit.loss_fn(m, *b)[0],
+                     (torch.randn((2, 32, 32, 3), generator=g),
+                      torch.randint(0, 10, (2,), generator=g))),
+        "bert-tiny": (bert, lambda m, *b: bert.mlm_logits(
+                          m, b[0], attention_mask=b[3]), bert.mlm_loss,
+                      (tokens, torch.randint(0, 256, (2, 16), generator=g),
+                       (torch.rand((2, 16), generator=g) < 0.25).float(),
+                       mask)),
+        "t5-tiny": (t5, lambda m, *b: t5.forward(m, b[0], b[1]),
+                    lambda m, *b: t5.loss_fn(m, *b)[0],
+                    (torch.randint(0, 256, (2, 24), generator=g),
+                     torch.randint(0, 256, (2, 12), generator=g),
+                     torch.randint(0, 256, (2, 12), generator=g)))}
+    for preset, (module, fwd, loss_fn, batch) in cases.items():
+        cfg = module.config(preset)
+        cpu = module.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = type(cpu)(cfg, DEVICE)
+        card.load_state_dict(cpu.state_dict())
+        on_card = [x.to(DEVICE) for x in batch]
+        with torch.inference_mode():
+            ref, got = fwd(cpu, *batch), fwd(card, *on_card).cpu()
+        logit_err = float((got - ref).abs().max())
+        grads = []
+        for model, b in ((cpu, batch), (card, on_card)):
+            grads.append(torch.autograd.grad(
+                loss_fn(model, *b), list(model.parameters()),
+                allow_unused=True))
+        floor = ZOO_GRAD_FLOOR * max(float(a.norm()) for a in grads[0]
+                                     if a is not None)
+        grad_err = max(float((b.cpu() - a).norm()) / max(float(a.norm()),
+                                                          floor)
+                       for a, b in zip(*grads) if a is not None)
+        print(f"{preset} fp32, card vs CPU: max|dlogit| {logit_err:.3e}, "
+              f"max over tensors of |dgrad| / |grad| {grad_err:.3e} (bound "
+              f"{ZOO_TINY_TOL:.0e})")
+        check(bool(((got - ref).abs() <= ZOO_TINY_TOL
+                    + ZOO_TINY_TOL * ref.abs()).all())
+              and grad_err <= ZOO_TINY_TOL,
+              f"{preset} on the card disagrees with the CPU")
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -2098,6 +2449,9 @@ def _main_phases(torch):
     k1_moe_serve = _timed("4d", phase_moe_serving, torch)
     k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
     _timed("5c", phase_llama_small, torch)
+    _timed("4e", phase_diffusion_serving, torch)
+    _timed("5h", phase_zoo_training, torch)
+    _timed("5h (tiny)", phase_zoo_small, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [

@@ -1,6 +1,6 @@
 """Built-in metrics of the port, under the names of
-``ray_tpu/_private/builtin_metrics.py``: the decode loop's pair, spill's
-failures and the train checkpoints'.
+``ray_tpu/_private/builtin_metrics.py``: the decode loop's pair,
+``@serve.batch``'s pair, spill's failures and the train checkpoints'.
 
 Each accessor (re-)binds its metric through the registry, so
 ``util.metrics.clear_registry()`` in tests cannot orphan the
@@ -10,6 +10,22 @@ instrumentation: the next event simply re-registers.
 from __future__ import annotations
 
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+
+def serve_batch_size() -> Gauge:
+    return Gauge(
+        "ray_tpu_serve_batch_size",
+        "Size of the last executed @serve.batch batch, per batched "
+        "function (adaptive batching moves this with load).",
+        tag_keys=("fn",))
+
+
+def serve_batch_size_limit() -> Gauge:
+    return Gauge(
+        "ray_tpu_serve_batch_size_limit",
+        "Current adaptive max-batch-size operating point of a "
+        "@serve.batch queue (AIMD-tuned against the latency budget).",
+        tag_keys=("fn",))
 
 
 def serve_decode_active_slots() -> Gauge:

@@ -1,5 +1,6 @@
 """Runtime flags read from the environment: the part of
-``ray_tpu/_private/ray_config.py`` that the port's checkpoints read.
+``ray_tpu/_private/ray_config.py`` that the port's checkpoints and
+``@serve.batch`` read.
 
 The JAX package first asks a live runtime's config table and keeps its
 defaults in a native library; the port has neither, so a flag is the
@@ -18,6 +19,9 @@ _PY_DEFAULTS = {
     # whether full-block restores and GC validate crc32 checksums.
     "train_ckpt_shard_parallelism": 8,
     "train_ckpt_verify_checksums": True,
+    # Batch queues with no declared target adapt against this latency
+    # budget (0 = fixed batching; serve/batching.py).
+    "serve_batch_target_latency_ms": 0.0,
 }
 
 

@@ -1,0 +1,276 @@
+"""BERT-style bidirectional encoder with a masked-LM head —
+``ray_tpu/models/bert.py`` in PyTorch.
+
+Same configuration fields and presets, parameter names and shapes (the
+layers a ``ModuleList``, where the JAX package stacks them for
+``lax.scan``), and numerics: the three embeddings summed in the parameter
+dtype and cast before the embedding LayerNorm; post-LayerNorm blocks (LN
+of ``x + sublayer(x)``, eps 1e-12, in fp32); the attention scale applied
+in the compute dtype, the ``-1e9`` padding bias added in fp32 before the
+fp32 softmax; the tanh form of GELU; the masked-LM head over the tied
+``wte`` and the tanh [CLS] pooler in fp32. With ``remat`` (the default)
+each block is checkpointed while gradients are recorded.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models._common import (as_dtype, check_unplaced,
+                                          check_unstacked, checkpointed)
+from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
+                                          to_jax_params)
+from ray_tpu_torch.models.gpt import _draw, _empty, _layernorm
+from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    d_model: int = 768
+    n_heads: int = 12
+    d_ff: int = 3072
+    n_layers: int = 12
+    max_seq_len: int = 512
+    n_segments: int = 2
+    layernorm_eps: float = 1e-12
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def num_params(self) -> int:
+        d, f = self.d_model, self.d_ff
+        attn = 4 * d * d + 4 * d  # qkvo weights + biases
+        ffn = 2 * d * f + f + d
+        block = attn + ffn + 4 * d  # + two layernorms (scale, bias)
+        embeds = (self.vocab_size + self.max_seq_len
+                  + self.n_segments) * d + 2 * d  # + embedding layernorm
+        pooler = d * d + d
+        mlm = d * d + d + 2 * d + self.vocab_size  # transform+ln+bias
+        return embeds + self.n_layers * block + pooler + mlm
+
+
+PRESETS: Dict[str, BertConfig] = {
+    "bert-base": BertConfig(),
+    "bert-large": BertConfig(d_model=1024, n_heads=16, d_ff=4096,
+                             n_layers=24),
+    "bert-tiny": BertConfig(vocab_size=256, d_model=64, n_heads=4,
+                            d_ff=128, n_layers=2, max_seq_len=64,
+                            dtype=torch.float32, remat=False),
+}
+
+
+def config(name: str, **overrides) -> BertConfig:
+    cfg = PRESETS[name]
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+# -- modules ------------------------------------------------------------
+
+class Block(nn.Module):
+    """One post-LN encoder block; names and shapes of one layer of the JAX
+    package's stacked ``params["layers"]``."""
+
+    def __init__(self, cfg: BertConfig, device):
+        super().__init__()
+        d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+        self.cfg = cfg
+        for name in ("wq", "wk", "wv"):
+            setattr(self, name, _empty((d, h, hd), cfg, device))
+        self.wo = _empty((h, hd, d), cfg, device)
+        for name in ("bq", "bk", "bv"):
+            setattr(self, name, _empty((h, hd), cfg, device))
+        self.bo = _empty((d,), cfg, device)
+        self.ln1_s = _empty((d,), cfg, device)
+        self.ln1_b = _empty((d,), cfg, device)
+        self.wi = _empty((d, f), cfg, device)
+        self.bi = _empty((f,), cfg, device)
+        self.wo_ff = _empty((f, d), cfg, device)
+        self.bo_ff = _empty((d,), cfg, device)
+        self.ln2_s = _empty((d,), cfg, device)
+        self.ln2_b = _empty((d,), cfg, device)
+
+    def _attention(self, x, mask_bias):
+        dt = self.cfg.dtype
+        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt)) + self.bq.to(dt)
+        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt)) + self.bk.to(dt)
+        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt)) + self.bv.to(dt)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / as_dtype(
+            math.sqrt(self.cfg.head_dim), dt)
+        logits = logits.float() + mask_bias  # fp32 softmax
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return torch.einsum("bqhd,hdm->bqm", ctx, self.wo.to(dt)) + \
+            self.bo.to(dt)
+
+    def forward(self, x, mask_bias):
+        cfg = self.cfg
+        dt = cfg.dtype
+        # Post-LN residual order (original BERT): LN(x + sublayer(x)).
+        x = _layernorm(x + self._attention(x, mask_bias), self.ln1_s,
+                       self.ln1_b, cfg.layernorm_eps)
+        hidden = F.gelu(x @ self.wi.to(dt) + self.bi.to(dt),
+                        approximate="tanh")
+        ffn = hidden @ self.wo_ff.to(dt) + self.bo_ff.to(dt)
+        return _layernorm(x + ffn, self.ln2_s, self.ln2_b, cfg.layernorm_eps)
+
+
+class Bert(nn.Module):
+    """The BERT encoder and its heads. Parameters are allocated
+    uninitialised; build one with :func:`init` (random) or
+    :func:`from_jax_params` (carried over from the JAX package)."""
+
+    jax_stacks = {"layers": "blocks"}
+
+    def __init__(self, cfg: BertConfig, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        d = cfg.d_model
+        self.cfg = cfg
+        self.wte = _empty((cfg.vocab_size, d), cfg, dev)
+        self.wpe = _empty((cfg.max_seq_len, d), cfg, dev)
+        self.wse = _empty((cfg.n_segments, d), cfg, dev)
+        self.emb_ln_s = _empty((d,), cfg, dev)
+        self.emb_ln_b = _empty((d,), cfg, dev)
+        self.pooler_w = _empty((d, d), cfg, dev)
+        self.pooler_b = _empty((d,), cfg, dev)
+        self.mlm_w = _empty((d, d), cfg, dev)
+        self.mlm_b = _empty((d,), cfg, dev)
+        self.mlm_ln_s = _empty((d,), cfg, dev)
+        self.mlm_ln_b = _empty((d,), cfg, dev)
+        self.mlm_bias = _empty((cfg.vocab_size,), cfg, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dev)
+                                    for _ in range(cfg.n_layers))
+
+    def forward(self, tokens, segment_ids=None, attention_mask=None):
+        """→ [B, S, d_model] contextual embeddings (:func:`encode`)."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        if segment_ids is None:
+            segment_ids = torch.zeros_like(tokens)
+        if attention_mask is None:
+            attention_mask = torch.ones_like(tokens)
+        x = (F.embedding(tokens, self.wte) + self.wpe[None, :S]
+             + F.embedding(segment_ids, self.wse))
+        x = _layernorm(x.to(cfg.dtype), self.emb_ln_s, self.emb_ln_b,
+                       cfg.layernorm_eps)
+        # [B, 1, 1, S] additive bias: -1e9 on padding keys.
+        mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+                                -1e9).float()
+        for block in self.blocks:
+            x = checkpointed(block, cfg.remat)(x, mask_bias)
+        return x
+
+
+def encode(model: Bert, tokens, segment_ids=None, attention_mask=None):
+    """→ [B, S, d_model] contextual embeddings. ``attention_mask`` is 1
+    for real tokens, 0 for padding (padding positions are excluded from
+    every token's attention)."""
+    return model(tokens, segment_ids, attention_mask)
+
+
+def mlm_logits(model: Bert, tokens, segment_ids=None, attention_mask=None):
+    """Masked-LM head over the tied embedding → [B, S, vocab] (fp32)."""
+    cfg = model.cfg
+    dt = cfg.dtype
+    x = model(tokens, segment_ids, attention_mask)
+    x = F.gelu(x @ model.mlm_w.to(dt) + model.mlm_b.to(dt),
+               approximate="tanh")
+    x = _layernorm(x, model.mlm_ln_s, model.mlm_ln_b, cfg.layernorm_eps)
+    logits = x.float() @ model.wte.float().T
+    return logits + model.mlm_bias.float()
+
+
+def pooled(model: Bert, tokens, segment_ids=None, attention_mask=None):
+    """The tanh [CLS] pooler → [B, d_model] (sentence representation)."""
+    x = model(tokens, segment_ids, attention_mask)
+    cls = x[:, 0].float()
+    return torch.tanh(cls @ model.pooler_w.float() + model.pooler_b.float())
+
+
+def mlm_loss(model: Bert, tokens, targets, mask_positions,
+             attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over masked positions (mask_positions is 1
+    where a token was masked and must be predicted)."""
+    logits = mlm_logits(model, tokens, attention_mask=attention_mask)
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    weights = mask_positions.float()
+    return -(picked * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
+
+
+# -- parameters ---------------------------------------------------------
+
+def param_specs(cfg: BertConfig, rules: ShardingRules) -> Dict[str, Any]:
+    """The JAX package's ``param_specs``, each layer leaf's spec less its
+    leading ``layers`` entry (the port's layers are a ``ModuleList``)."""
+    check_unstacked(rules)
+    r = rules
+    layers = {
+        "wq": r.spec("embed", "heads", "head_dim"),
+        "wk": r.spec("embed", "heads", "head_dim"),
+        "wv": r.spec("embed", "heads", "head_dim"),
+        "wo": r.spec("heads", "head_dim", "embed"),
+        "bq": r.spec("heads", "head_dim"),
+        "bk": r.spec("heads", "head_dim"),
+        "bv": r.spec("heads", "head_dim"),
+        "bo": r.spec("embed"),
+        "ln1_s": r.spec(None), "ln1_b": r.spec(None),
+        "wi": r.spec("embed", "mlp"),
+        "bi": r.spec("mlp"),
+        "wo_ff": r.spec("mlp", "embed"),
+        "bo_ff": r.spec("embed"),
+        "ln2_s": r.spec(None), "ln2_b": r.spec(None),
+    }
+    return {
+        "wte": r.spec("vocab", "embed"),
+        "wpe": r.spec(None, "embed"),
+        "wse": r.spec(None, "embed"),
+        "emb_ln_s": PartitionSpec(), "emb_ln_b": PartitionSpec(),
+        "layers": layers,
+        "pooler_w": r.spec("embed", None), "pooler_b": PartitionSpec(),
+        "mlm_w": r.spec("embed", None), "mlm_b": PartitionSpec(),
+        "mlm_ln_s": PartitionSpec(), "mlm_ln_b": PartitionSpec(),
+        "mlm_bias": r.spec("vocab"),
+    }
+
+
+def batch_spec(rules: ShardingRules) -> PartitionSpec:
+    return rules.spec("batch", "sequence")
+
+
+def init(cfg: BertConfig, generator: torch.Generator,
+         device: DeviceLike = None, mesh=None) -> Bert:
+    """A model with the JAX package's init distributions (every weight
+    N(0, 0.02²); LayerNorm scales 1, biases 0), drawn from ``generator``,
+    which must live on ``device``. The draws differ from ``jax.random``'s
+    for the same seed."""
+    check_unplaced(mesh)
+    normal = dict.fromkeys(("wte", "wpe", "wse", "pooler_w", "mlm_w", "wq",
+                            "wk", "wv", "wo", "wi", "wo_ff"), 0.02)
+    return _draw(Bert(cfg, device), generator, normal,
+                 lambda leaf: 1.0 if leaf.endswith("_s") else 0.0)
+
+
+def from_jax_params(params: Dict[str, Any], cfg: BertConfig,
+                    device: DeviceLike = None) -> Bert:
+    """The port's model holding exactly the values of ``params``: the
+    nested dict that ``ray_tpu.models.bert.init`` returns, with numpy
+    leaves and layers stacked on a leading ``[L, ...]`` axis."""
+    return load_jax_params(Bert(cfg, device), params)
+
+
+__all__ = ["Bert", "BertConfig", "Block", "PRESETS", "batch_spec", "config",
+           "encode", "from_jax_params", "init", "leaf_groups", "mlm_logits",
+           "mlm_loss", "param_specs", "pooled", "to_jax_params"]

@@ -40,9 +40,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,6 +49,9 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models._common import check_unstacked
+from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
+                                          to_jax_params)
 from ray_tpu_torch.ops import ring_attention as ring
 from ray_tpu_torch.ops import ulysses
 from ray_tpu_torch.ops.flash_attention import _flash_forward, flash_attention
@@ -583,6 +585,8 @@ class GPT(nn.Module):
     with :func:`init` (random) or :func:`from_jax_params` (carried over
     from the JAX package)."""
 
+    jax_stacks = {"layers": "blocks"}
+
     def __init__(self, cfg: GPTConfig, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
@@ -795,10 +799,7 @@ def param_specs(cfg: GPTConfig, rules: ShardingRules) -> Dict[str, Any]:
     name, and under ``"layers"`` each layer's tensors by leaf name, with
     the JAX leaf's spec less its leading ``layers`` entry (the port's
     layers are a ``ModuleList``, not a stacked axis)."""
-    if rules.layers is not None:
-        raise NotImplementedError(
-            f"rules.layers={rules.layers!r} (the stacked layer axis over "
-            f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
+    check_unstacked(rules)
     r = rules
     layers = {
         "ln1_scale": r.spec("embed"),
@@ -886,14 +887,6 @@ def init(cfg: GPTConfig, generator: torch.Generator,
                  lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
 
 
-def _assign(param: nn.Parameter, arr, name: str) -> None:
-    t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
-    if tuple(t.shape) != tuple(param.shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
-                         f"the config's {tuple(param.shape)}")
-    param.copy_(t)
-
-
 def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
                     device: DeviceLike = None) -> GPT:
     """The port's model holding exactly the values of ``params``: the
@@ -901,51 +894,7 @@ def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,
     leaves and layers stacked on a leading ``[L, ...]`` axis. Values are
     copied into ``cfg.param_dtype`` (exact when the leaves are of that
     dtype)."""
-    return _load_jax_params(GPT(cfg, device), params)
-
-
-def _load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Copy ``params`` (the JAX package's nested dict, layers stacked on a
-    leading ``[L, ...]`` axis) into ``model``'s tensors and its
-    ``blocks``; returns ``model``."""
-    layers = params["layers"]
-    with torch.no_grad():
-        for name, p in model.named_parameters(recurse=False):
-            _assign(p, params[name], name)
-        for i, block in enumerate(model.blocks):
-            for name, p in block.named_parameters():
-                _assign(p, np.asarray(layers[name])[i], f"layers.{name}[{i}]")
-    return model
-
-
-def leaf_groups(model: nn.Module) -> Dict[str, List[str]]:
-    """The JAX package's parameter leaves of ``model`` (a GPT, or any
-    model of the port whose layers are its ``blocks``), each with the
-    names of the port's tensors that hold it, in the structure
-    :func:`to_jax_params` walks: ``"wte"`` → ``["wte"]``; a layer leaf
-    such as ``"layers.wq"`` → ``["blocks.0.wq", ...,
-    "blocks.{L-1}.wq"]``, the slices of its leading ``[L, ...]`` axis in
-    order."""
-    groups = {name: [name]
-              for name, _ in model.named_parameters(recurse=False)}
-    for name, _ in model.blocks[0].named_parameters():
-        groups[f"layers.{name}"] = [f"blocks.{i}.{name}"
-                                    for i in range(len(model.blocks))]
-    return groups
-
-
-def to_jax_params(model: nn.Module) -> Dict[str, Any]:
-    """The inverse of :func:`from_jax_params` (for a GPT, or any model of
-    the port whose layers are its ``blocks``): the JAX package's nested
-    parameter dict with numpy leaves, layers stacked on a leading ``[L,
-    ...]`` axis."""
-    params = {name: p.detach().cpu().numpy()
-              for name, p in model.named_parameters(recurse=False)}
-    params["layers"] = {
-        name: np.stack([dict(b.named_parameters())[name].detach().cpu()
-                        .numpy() for b in model.blocks])
-        for name, _ in model.blocks[0].named_parameters()}
-    return params
+    return load_jax_params(GPT(cfg, device), params)
 
 
 __all__ = ["GPT", "GPTConfig", "PRESETS", "Block", "batch_spec", "config",

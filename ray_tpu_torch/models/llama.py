@@ -49,11 +49,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models._common import check_unstacked
+from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
+                                          to_jax_params)
 from ray_tpu_torch.models.gpt import (_ce_stats, _dispatch_attention,
                                       _dot_attention, _draw, _embed, _empty,
-                                      _load_jax_params, _loss_and_metrics,
-                                      _placed, _positions, leaf_groups,
-                                      to_jax_params)
+                                      _loss_and_metrics, _placed, _positions)
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                              AxisShard, from_tp, gather_tp,
@@ -214,6 +215,8 @@ class Llama(nn.Module):
     with :func:`init` (random) or :func:`from_jax_params` (carried over
     from the JAX package)."""
 
+    jax_stacks = {"layers": "blocks"}
+
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
@@ -283,10 +286,7 @@ def param_specs(cfg: LlamaConfig, rules: ShardingRules) -> Dict[str, Any]:
     """PartitionSpecs of the model's parameters, after
     ``ray_tpu/models/llama.py``'s ``param_specs``, laid out as
     ``models.gpt.param_specs`` lays out GPT's."""
-    if rules.layers is not None:
-        raise NotImplementedError(
-            f"rules.layers={rules.layers!r} (the stacked layer axis over "
-            f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
+    check_unstacked(rules)
     r = rules
     layers = {
         "attn_norm": r.spec("embed"),
@@ -340,7 +340,7 @@ def from_jax_params(params: Dict[str, Any], cfg: LlamaConfig,
     leaves and layers stacked on a leading ``[L, ...]`` axis. Values are
     copied into ``cfg.param_dtype`` (exact when the leaves are of that
     dtype)."""
-    return _load_jax_params(Llama(cfg, device), params)
+    return load_jax_params(Llama(cfg, device), params)
 
 
 __all__ = ["Block", "Llama", "LlamaConfig", "PRESETS", "batch_spec",

@@ -1,0 +1,337 @@
+"""T5-style encoder-decoder — ``ray_tpu/models/t5.py`` in PyTorch.
+
+Same configuration fields and presets, parameter names and shapes (the
+encoder's and the decoder's layers two ``ModuleList``s, where the JAX
+package stacks each for ``lax.scan``), and numerics: pre-RMSNorm blocks
+in fp32, cast back; T5's log-bucketed relative positions
+(:func:`_relative_buckets`, computed on the CPU, where torch's fp32 log
+gives the JAX package's buckets, and cached per device) whose bias table
+is cast to the compute dtype and then to fp32; the attention scale in the
+compute dtype before the fp32 softmax, the causal fill -1e30; the
+gated-GELU feed-forward (tanh form); the tied head scaled by
+``d_model ** -0.5`` in the compute dtype. With ``remat`` (the default)
+each block is checkpointed while gradients are recorded.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models._common import (as_dtype, check_unplaced,
+                                          check_unstacked, checkpointed)
+from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
+                                          to_jax_params)
+from ray_tpu_torch.models.gpt import _draw, _empty
+from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+
+
+@dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 512
+    n_heads: int = 8
+    d_ff: int = 1024
+    n_encoder_layers: int = 6
+    n_decoder_layers: int = 6
+    rel_pos_buckets: int = 32
+    rel_pos_max_distance: int = 128
+    layernorm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def num_params(self) -> int:
+        d, f, h = self.d_model, self.d_ff, self.n_heads
+        attn = 4 * d * d
+        ffn = 3 * d * f  # gated: wi_0, wi_1, wo
+        enc = self.n_encoder_layers * (attn + ffn + 2 * d)
+        dec = self.n_decoder_layers * (2 * attn + ffn + 3 * d)
+        rel = 2 * self.rel_pos_buckets * h  # enc + dec bias tables
+        return self.vocab_size * d + enc + dec + rel + 2 * d
+
+
+PRESETS: Dict[str, T5Config] = {
+    "t5-small": T5Config(),
+    "t5-base": T5Config(d_model=768, n_heads=12, d_ff=2048,
+                        n_encoder_layers=12, n_decoder_layers=12),
+    "t5-tiny": T5Config(vocab_size=256, d_model=64, n_heads=4, d_ff=128,
+                        n_encoder_layers=2, n_decoder_layers=2,
+                        rel_pos_buckets=8, rel_pos_max_distance=32,
+                        dtype=torch.float32, remat=False),
+}
+
+
+def config(name: str, **overrides) -> T5Config:
+    cfg = PRESETS[name]
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+# -- numerics -----------------------------------------------------------
+
+def _rmsnorm(x, scale, eps):
+    x32 = x.float()
+    var = (x32 ** 2).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _relative_buckets(rel_pos, bidirectional: bool, num_buckets: int,
+                      max_distance: int):
+    """T5's log-bucketed relative positions (t5x relative_position_bucket).
+    ``rel_pos`` = q_pos - k_pos: positive = key in the past. The large
+    buckets truncate an fp32 log to int, in the JAX package's order of
+    operations."""
+    ret = 0
+    n = rel_pos
+    if bidirectional:
+        num_buckets //= 2
+        ret = (n < 0).to(torch.int32) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp_min(0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    log_ratio = torch.log(n.float() / max_exact + 1e-6) / \
+        math.log(max_distance / max_exact)
+    large = max_exact + (log_ratio * (num_buckets - max_exact)).to(
+        torch.int32)
+    large = large.clamp_max(num_buckets - 1)
+    return ret + torch.where(is_small, n, large)
+
+
+@functools.lru_cache(maxsize=32)
+def _bucket_table(q_len: int, k_len: int, bidirectional: bool,
+                  num_buckets: int, max_distance: int,
+                  device: torch.device) -> torch.Tensor:
+    """The ``[Q, K]`` buckets, computed on the CPU, on ``device``; a plain
+    tensor even when first asked for under ``inference_mode``, so that a
+    later forward that records gradients may index with it."""
+    with torch.inference_mode(False):
+        rel = torch.arange(q_len)[:, None] - torch.arange(k_len)[None, :]
+        buckets = _relative_buckets(rel, bidirectional, num_buckets,
+                                    max_distance)
+        return buckets.long().to(device)
+
+
+def _rel_bias(table, q_len: int, k_len: int, bidirectional: bool,
+              cfg: T5Config):
+    buckets = _bucket_table(q_len, k_len, bidirectional, cfg.rel_pos_buckets,
+                            cfg.rel_pos_max_distance, table.device)
+    bias = table[buckets]  # [Q, K, H]
+    return bias.permute(2, 0, 1)[None].to(cfg.dtype)  # [1, H, Q, K]
+
+
+# -- modules ------------------------------------------------------------
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv`` [d, h, hd] and ``wo`` [h, hd, d]."""
+
+    def __init__(self, cfg: T5Config, device):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        self.cfg = cfg
+        for name in ("wq", "wk", "wv"):
+            setattr(self, name, _empty((d, h, hd), cfg, device))
+        self.wo = _empty((h, hd, d), cfg, device)
+
+    def forward(self, q_in, kv_in, bias=None, causal: bool = False):
+        dt = self.cfg.dtype
+        q = torch.einsum("bsd,dhk->bshk", q_in, self.wq.to(dt))
+        k = torch.einsum("bsd,dhk->bshk", kv_in, self.wk.to(dt))
+        v = torch.einsum("bsd,dhk->bshk", kv_in, self.wv.to(dt))
+        # The JAX package applies 1/sqrt(head_dim) explicitly (upstream T5
+        # folds it into wq's init).
+        scale = as_dtype(1.0 / math.sqrt(q.shape[-1]), dt)
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+        if bias is not None:
+            logits = logits + bias.float()
+        if causal:
+            Q, K = logits.shape[-2], logits.shape[-1]
+            keep = torch.ones((Q, K), dtype=torch.bool,
+                              device=logits.device).tril()
+            logits = torch.where(keep, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, cfg: T5Config, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.cfg = cfg
+        self.ln1 = _empty((d,), cfg, device)
+        self.ln2 = _empty((d,), cfg, device)
+        self.attn = Attention(cfg, device)
+        self.wi_0 = _empty((d, f), cfg, device)
+        self.wi_1 = _empty((d, f), cfg, device)
+        self.wo_ff = _empty((f, d), cfg, device)
+
+    def _ffn(self, x):
+        dt = self.cfg.dtype
+        gate = F.gelu(x @ self.wi_0.to(dt), approximate="tanh")
+        up = x @ self.wi_1.to(dt)
+        return (gate * up) @ self.wo_ff.to(dt)
+
+    def forward(self, x, bias):
+        eps = self.cfg.layernorm_eps
+        h = _rmsnorm(x, self.ln1, eps)
+        x = x + self.attn(h, h, bias=bias)
+        return x + self._ffn(_rmsnorm(x, self.ln2, eps))
+
+
+class DecoderBlock(EncoderBlock):
+    def __init__(self, cfg: T5Config, device):
+        super().__init__(cfg, device)
+        self.ln3 = _empty((cfg.d_model,), cfg, device)
+        self.cross = Attention(cfg, device)
+
+    def forward(self, x, enc_out, bias):
+        eps = self.cfg.layernorm_eps
+        h = _rmsnorm(x, self.ln1, eps)
+        x = x + self.attn(h, h, bias=bias, causal=True)
+        x = x + self.cross(_rmsnorm(x, self.ln3, eps), enc_out)
+        return x + self._ffn(_rmsnorm(x, self.ln2, eps))
+
+
+class T5(nn.Module):
+    """The encoder-decoder. Parameters are allocated uninitialised; build
+    one with :func:`init` (random) or :func:`from_jax_params` (carried
+    over from the JAX package)."""
+
+    jax_stacks = {"encoder": "encoder", "decoder": "decoder"}
+
+    def __init__(self, cfg: T5Config, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        d, h = cfg.d_model, cfg.n_heads
+        self.cfg = cfg
+        self.wte = _empty((cfg.vocab_size, d), cfg, dev)
+        self.enc_rel_bias = _empty((cfg.rel_pos_buckets, h), cfg, dev)
+        self.dec_rel_bias = _empty((cfg.rel_pos_buckets, h), cfg, dev)
+        self.enc_final_ln = _empty((d,), cfg, dev)
+        self.dec_final_ln = _empty((d,), cfg, dev)
+        self.encoder = nn.ModuleList(EncoderBlock(cfg, dev)
+                                     for _ in range(cfg.n_encoder_layers))
+        self.decoder = nn.ModuleList(DecoderBlock(cfg, dev)
+                                     for _ in range(cfg.n_decoder_layers))
+
+    def forward(self, encoder_tokens, decoder_tokens):
+        """→ logits [B, Sd, vocab] in the compute dtype."""
+        return decode(self, encode(self, encoder_tokens), decoder_tokens)
+
+
+def encode(model: T5, tokens):
+    """tokens [B, S] → encoder hidden [B, S, d]."""
+    cfg = model.cfg
+    x = F.embedding(tokens, model.wte).to(cfg.dtype)
+    S = tokens.shape[1]
+    bias = _rel_bias(model.enc_rel_bias, S, S, True, cfg)
+    for block in model.encoder:
+        x = checkpointed(block, cfg.remat)(x, bias)
+    return _rmsnorm(x, model.enc_final_ln, cfg.layernorm_eps)
+
+
+def decode(model: T5, enc_out, decoder_tokens):
+    """enc_out [B, Se, d] + decoder_tokens [B, Sd] → logits [B, Sd, V]."""
+    cfg = model.cfg
+    dt = cfg.dtype
+    x = F.embedding(decoder_tokens, model.wte).to(dt)
+    Sd = decoder_tokens.shape[1]
+    self_bias = _rel_bias(model.dec_rel_bias, Sd, Sd, False, cfg)
+    for block in model.decoder:
+        x = checkpointed(block, cfg.remat)(x, enc_out, self_bias)
+    x = _rmsnorm(x, model.dec_final_ln, cfg.layernorm_eps)
+    # Tied embedding head with T5's rescale.
+    x = x * as_dtype(cfg.d_model ** -0.5, dt)
+    return x @ model.wte.to(dt).T
+
+
+def forward(model: T5, encoder_tokens, decoder_tokens):
+    return model(encoder_tokens, decoder_tokens)
+
+
+def loss_fn(model: T5, encoder_tokens, decoder_tokens, targets, mask=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token cross-entropy (fp32) over ``mask`` → (loss, {"loss",
+    "accuracy"})."""
+    logits = model(encoder_tokens, decoder_tokens).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - tgt
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((logits.detach().argmax(-1) == targets) * mask).sum() / denom
+    return loss, {"loss": loss.detach(), "accuracy": acc}
+
+
+# -- parameters ---------------------------------------------------------
+
+def param_specs(cfg: T5Config, rules: ShardingRules) -> Dict[str, Any]:
+    """The JAX package's ``param_specs``, each stacked leaf's spec less its
+    leading ``layers`` entry (the port's layers are ``ModuleList``s)."""
+    check_unstacked(rules)
+    r = rules
+
+    def attn():
+        return {"wq": r.spec("embed", "heads", "head_dim"),
+                "wk": r.spec("embed", "heads", "head_dim"),
+                "wv": r.spec("embed", "heads", "head_dim"),
+                "wo": r.spec("heads", "head_dim", "embed")}
+
+    enc = {"ln1": r.spec("embed"), "ln2": r.spec("embed"), "attn": attn(),
+           "wi_0": r.spec("embed", "mlp"), "wi_1": r.spec("embed", "mlp"),
+           "wo_ff": r.spec("mlp", "embed")}
+    dec = dict(enc, ln3=r.spec("embed"), cross=attn())
+    return {
+        "wte": r.spec("vocab", "embed"),
+        "enc_rel_bias": r.spec(None, "heads"),
+        "dec_rel_bias": r.spec(None, "heads"),
+        "encoder": enc,
+        "decoder": dec,
+        "enc_final_ln": r.spec("embed"),
+        "dec_final_ln": r.spec("embed"),
+    }
+
+
+def batch_spec(rules: ShardingRules) -> PartitionSpec:
+    return rules.spec("batch", "sequence")
+
+
+def init(cfg: T5Config, generator: torch.Generator,
+         device: DeviceLike = None, mesh=None) -> T5:
+    """A model with the JAX package's init distributions (every weight and
+    bias table N(0, 1/d_model); RMSNorm scales 1), drawn from
+    ``generator``, which must live on ``device``. The draws differ from
+    ``jax.random``'s for the same seed."""
+    check_unplaced(mesh)
+    std = 1.0 / math.sqrt(cfg.d_model)
+    normal = dict.fromkeys(("wte", "enc_rel_bias", "dec_rel_bias", "wq",
+                            "wk", "wv", "wo", "wi_0", "wi_1", "wo_ff"), std)
+    return _draw(T5(cfg, device), generator, normal, lambda leaf: 1.0)
+
+
+def from_jax_params(params: Dict[str, Any], cfg: T5Config,
+                    device: DeviceLike = None) -> T5:
+    """The port's model holding exactly the values of ``params``: the
+    nested dict that ``ray_tpu.models.t5.init`` returns, with numpy leaves
+    and each stack's layers on a leading ``[L, ...]`` axis."""
+    return load_jax_params(T5(cfg, device), params)
+
+
+__all__ = ["Attention", "DecoderBlock", "EncoderBlock", "PRESETS", "T5",
+           "T5Config", "batch_spec", "config", "decode", "encode", "forward",
+           "from_jax_params", "init", "leaf_groups", "loss_fn",
+           "param_specs", "to_jax_params"]

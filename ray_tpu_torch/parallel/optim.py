@@ -22,9 +22,9 @@ set of updates.
 Block-RMS steps act on whole JAX leaves. The JAX package stacks each
 layer's parameter on a leading ``[L, ...]`` axis, so optax takes one RMS
 over all layers' ``wq`` together. Here the layers are separate tensors;
-``init(params, groups)`` takes the leaves as ``{leaf: [names]}`` (for a
-GPT, ``models.gpt.leaf_groups``), and a group of more than one name is
-one leaf stacked over layers.
+``init(params, groups)`` takes the leaves as ``{leaf: [names]}`` (a
+model's ``leaf_groups``, ``models/_params.py``), and a leaf whose group is
+not its own name is stacked over layers.
 
 On a mesh the parameters and gradients are DTensors (FSDP2 and tensor
 parallelism, ``parallel/sharding.py``). Every transformation then works on
@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ray_tpu_torch.models._params import nest, stacked
 from ray_tpu_torch.parallel.sharding import local
 
 Params = Dict[str, torch.Tensor]
@@ -289,11 +290,11 @@ def _factor_plan(params: Params, groups: Groups,
     lower."""
     plan = {}
     for leaf, names in groups.items():
-        stacked = len(names) > 1
+        layered = stacked(leaf, names)
         for n in names:
-            shape = (len(names),) * stacked + tuple(params[n].shape)
+            shape = (len(names),) * layered + tuple(params[n].shape)
             dims = _factored_dims(shape, min_dim_size_to_factor)
-            if dims is not None and stacked:
+            if dims is not None and layered:
                 if 0 in dims:
                     raise NotImplementedError(
                         f"{leaf}: optax would factor over the layer axis "
@@ -425,28 +426,14 @@ class _Leaf:
     drop: Optional[int] = None
 
 
-def _nest(groups: Groups, leaf: Callable[[str, List[str]], Any]
-          ) -> Dict[str, Any]:
-    """``{"layers": {"wq": leaf("layers.wq", names)}, "wte": ...}``: the
-    JAX package's nested parameter tree of the leaves of ``groups``."""
-    tree: Dict[str, Any] = {}
-    for key, names in groups.items():
-        *outer, last = key.split(".")
-        node = tree
-        for part in outer:
-            node = node.setdefault(part, {})
-        node[last] = leaf(key, names)
-    return tree
-
-
 def _moments(tensors: Params, groups: Groups, drop=None) -> Dict[str, Any]:
     def leaf(key, names):
         have = [tensors[n] for n in names if n in tensors]
         if have and len(have) != len(names):
             raise ValueError(f"{key}: a moment for some of its layers only")
-        return _Leaf(have or None, key.startswith("layers."), key,
+        return _Leaf(have or None, stacked(key, names), key,
                      None if drop is None or not have else drop(names[0]))
-    return _nest(groups, leaf)
+    return nest(groups, leaf)
 
 
 def _layout(state: State, groups: Groups) -> Any:

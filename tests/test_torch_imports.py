@@ -62,6 +62,16 @@ def test_sequence_expert_and_pipeline_modules_are_scanned():
         assert module in scanned, module
 
 
+def test_model_zoo_and_serve_batch_modules_are_scanned():
+    """The diffusion UNet, ViT, BERT, T5, their shared helpers and
+    ``@serve.batch`` with the config access it reads."""
+    scanned = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for module in ("models/diffusion.py", "models/vit.py", "models/bert.py",
+                   "models/t5.py", "models/_params.py", "models/_common.py",
+                   "serve/batching.py", "serve/_private/common.py"):
+        assert f"ray_tpu_torch/{module}" in scanned, module
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_ray_tpu(path):
