@@ -104,7 +104,20 @@ printed:
    step-0 loss held to its random-init value, every parameter the loss
    reaches moved, a profile of one step; then vit-tiny, bert-tiny and
    t5-tiny in fp32 on the card against the CPU (forward and first
-   gradients). None of these models launches K1-K3.
+   gradients). None of these models launches K1-K3. 5i: the same four on
+   the 1-rank mesh, placed by ``init(..., mesh=, rules=)`` (ViT, BERT and
+   T5 under ``tp_fsdp_rules()``, the UNet under ``dp_rules()``; FSDP2 and
+   DTensor parameters) from 5h's seed, their weights 5h's; 2 warm-up and 4
+   timed steps composed as a user composes them (the loss inside
+   ``registered_mesh``, backward, ``average_replicated_grads``, AdamW):
+   ViT's and BERT's losses and first update 5h's bit for bit; the UNet's
+   and T5's step-0 loss bit-equal, later losses within 1e-4 and the first
+   update within 2 lr of 5h's (FSDP2 sums the gradient of a tensor that
+   several of its units read in another association; ``ZOO_MESH_EXACT``);
+   ms per step, items/s, peak memory and a step's device time beside
+   5h's. Then t5-base's state is saved and resumed by both routes, each
+   resumed step bit-equal to the uninterrupted one (save and restore
+   seconds printed; the directory deleted).
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b" and gpt-moe-8x410m's under
@@ -319,6 +332,21 @@ ZOO_LOSS0 = {"ddpm-cifar": (1.0, 0.02), "vit-b16": (7.061, 0.35),
 # every key shares), so its own norm is noise.
 ZOO_TINY_TOL = 1e-4
 ZOO_GRAD_FLOOR = 1e-3
+# Phase 5i: 5h's models on the 1-rank mesh. ViT and BERT chain their
+# layers, and their steps are 5h's bit for bit. The UNet and T5 feed one
+# tensor to several of FSDP2's units (the skips; the encoder's output), and
+# FSDP2 passes each unit's inputs through an autograd node of its own: the
+# gradient of such a tensor is summed in another association, in the
+# activations' bf16, so the first gradients upstream of it differ by up to
+# 1.4e-3 (UNet) and 1.2e-2 (T5) of their norm on this card
+# (tests/measure_zoo_mesh_gap.py). There the step-0 loss is 5h's bit for
+# bit; after the first AdamW step (lr g / (|g| + eps), about lr sign(g))
+# every parameter is within 2 lr of 5h's; and a later loss within
+# ZOO_MESH_LOSS_RTOL of 5h's: the gradients' bf16 gap (2^-8 of a term of
+# the sums, 1e-2 measured) times the loss's relative change a step (2e-3
+# for T5, 1.5e-2 for the UNet), over 5 steps.
+ZOO_MESH_LOSS_RTOL = 1e-4
+ZOO_MESH_EXACT = ("vit-b16", "bert-base")
 
 
 def fail(msg: str) -> None:
@@ -1150,7 +1178,8 @@ def _profile_step(torch, model, buf):
 def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
     """Run fn once under torch.profiler and print its device time by
     kernel, the top ``top`` kernels by device time, the port's flash
-    kernels by name, and the step's time on the host clock. Each name in
+    kernels by name, and the step's time on the host clock; returns the
+    device time in ms (None when the profiler saw none). Each name in
     ``expect`` must be among the kernels the profiler saw. For each of
     the ``record_function`` ``ranges``, the device time of the kernels
     launched inside it (forward and remat's replay; the backward's
@@ -1171,7 +1200,7 @@ def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
     total = sum(e.self_device_time_total for e in events)
     if not total:
         print("profile: the profiler saw no device time (not measured)")
-        return
+        return None
     print(f"profile: {what}, device time {total / 1e3:.3f} ms over "
           f"{sum(e.count for e in events)} kernels in {wall * 1e3:.3f} ms "
           f"on the host clock (profiler on); top by device time:")
@@ -1209,6 +1238,7 @@ def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
         n = sum(e.count for e in mine)
         print(f"  range {name}: {t / 1e3:.3f} ms ({t / total:.1%}) of "
               f"device time inside it, x{n}")
+    return total / 1e3
 
 
 def phase_small_reference(torch):
@@ -2263,14 +2293,20 @@ def _zoo_step(torch, optim, loss_fn, model, params, opt, opt_state, batch):
 def phase_zoo_training(torch):
     """ddpm-cifar, vit-b16, bert-base and t5-base trained at full width
     (bf16 compute over fp32 parameters, the presets' own remat) with the
-    port's AdamW at weight decay 0: 2 warm-up and 4 timed steps each."""
+    port's AdamW at weight decay 0: 2 warm-up and 4 timed steps each.
+    Returns phase 5i's reference of each: the initial weights' fingerprint,
+    each step's loss, the parameters after the first step (on the card),
+    ms per step, items/s, peak memory above what was held before it, and
+    one profiled step's device time."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import optim
 
     _zero_counts(fa)
+    ref = {}
     for (preset, module, cfg, make_batch, loss_fn,
          what) in _zoo_training_cases(torch):
         items = ZOO_BATCH[preset]
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         model = module.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
                             DEVICE)
@@ -2293,6 +2329,8 @@ def phase_zoo_training(torch):
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append(float(loss))
+            if i == 0:
+                after1 = {n: p.detach().clone() for n, p in params.items()}
         peak = torch.cuda.max_memory_allocated()
         moved = (_fingerprint(torch, params) != before).any(dim=1).tolist()
         still = [n for n, m in zip(params, moved) if not m]
@@ -2315,14 +2353,20 @@ def phase_zoo_training(torch):
         check(set(still) == set(unused),
               f"{preset}: parameters {sorted(set(still) ^ set(unused))} "
               f"moved against their gradients' reach")
-        _profile(torch, lambda: _zoo_step(torch, optim, loss_fn, model,
-                                          params, opt, opt_state, batch),
-                 f"one training step of {preset}", 10, convs=True)
-        del model, params, opt_state, batch, before
+        device_ms = _profile(
+            torch, lambda: _zoo_step(torch, optim, loss_fn, model, params,
+                                     opt, opt_state, batch),
+            f"one training step of {preset}", 10, convs=True)
+        ref[preset] = {"init": before, "losses": losses, "after1": after1,
+                       "ms": mean_s * 1e3, "items_s": items / mean_s,
+                       "peak_gib": (peak - base) / 2**30,
+                       "device_ms": device_ms}
+        del model, params, opt_state, batch, after1
         gc.collect()
         torch.cuda.empty_cache()
     check(_counts(fa) == (0, 0, 0), "the zoo's models launched a flash "
           "kernel")
+    return ref
 
 
 def phase_zoo_small(torch):
@@ -2377,6 +2421,231 @@ def phase_zoo_small(torch):
               f"{preset} on the card disagrees with the CPU")
 
 
+def _zoo_mesh_step(torch, loss_fn, model, params, opt, opt_state, batch,
+                   mesh, rules):
+    """One training step on the mesh, as a user composes it: the loss with
+    the mesh and rules current, backward (FSDP2 reduces each gradient into
+    its sharded parameter and averages over the data ranks, so the loss
+    share is scaled by the count of batch blocks, 1 here), the gradients
+    of the parameters outside FSDP2 averaged, AdamW's update in place →
+    (the optimizer's state, the loss)."""
+    from ray_tpu_torch.models._common import batch_blocks
+    from ray_tpu_torch.parallel import optim
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+    from ray_tpu_torch.parallel.sharding import average_replicated_grads
+    with registered_mesh(mesh, rules):
+        loss = loss_fn(model, *batch)
+        (loss * batch_blocks()).backward()
+    average_replicated_grads(params.values())
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        optim.apply_updates(params, updates)
+    return opt_state, loss.detach()
+
+
+def _zoo_mesh_state(torch, module, cfg, mesh, rules, seed):
+    """(model, its parameters, AdamW, AdamW's state) of ``module`` placed
+    on the mesh by ``rules``, drawn from ``seed`` as phase 5h draws."""
+    from ray_tpu_torch.parallel import optim
+    model = module.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE, mesh=mesh, rules=rules)
+    params = dict(model.named_parameters())
+    opt = optim.adamw(lambda c: torch.full((), ZOO_LR, device=DEVICE),
+                      weight_decay=0.0)
+    return model, params, opt, opt.init(params, module.leaf_groups(model))
+
+
+def phase_zoo_mesh(torch, mesh, ref):
+    """Phase 5h's models through prepare_mesh's 1-rank mesh (ViT, BERT and
+    T5 under tp_fsdp_rules(), the UNet under dp_rules()), initialised from
+    5h's seed: the weights, each step's loss and the parameters after the
+    first step against 5h's (``ref``), ms per step, items/s, peak memory
+    and a step's device time beside 5h's; then t5-base's state saved and
+    resumed by both routes."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import dp_rules, tp_fsdp_rules
+    from ray_tpu_torch.parallel.sharding import local
+
+    _zero_counts(fa)
+    for (preset, module, cfg, make_batch, loss_fn,
+         what) in _zoo_training_cases(torch):
+        rules_name, rules = (("dp_rules()", dp_rules())
+                             if preset == "ddpm-cifar"
+                             else ("tp_fsdp_rules()", tp_fsdp_rules()))
+        mine = ref[preset]
+        items = ZOO_BATCH[preset]
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model, params, opt, opt_state = _zoo_mesh_state(
+            torch, module, cfg, mesh, rules, 0)
+        batch = make_batch(torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(isinstance(model, FSDPModule)
+              and all(isinstance(u, FSDPModule) for u in model.fsdp_units())
+              and all(isinstance(p, DTensor) for p in params.values()),
+              f"{preset}: the model is not placed by FSDP2 and DTensor")
+        blocks = {n: local(p) for n, p in params.items()}
+        check(torch.equal(_fingerprint(torch, blocks), mine["init"]),
+              f"{preset}: the weights initialised on the mesh differ from "
+              f"phase 5h's")
+        losses, step_s = [], []
+        for i in range(ZOO_WARMUP + ZOO_STEPS):
+            if i == ZOO_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            opt_state, loss = _zoo_mesh_step(torch, loss_fn, model, params,
+                                             opt, opt_state, batch, mesh,
+                                             rules)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0:
+                with torch.no_grad():
+                    diffs = [(local(p) - mine["after1"][n]).abs()
+                             for n, p in params.items()]
+                    n_diff = sum(int((d != 0).sum()) for d in diffs)
+                    max_diff = max(float(d.max()) for d in diffs)
+                del diffs
+        peak = torch.cuda.max_memory_allocated() - base
+        rel = [abs(a / b - 1) for a, b in zip(losses, mine["losses"])]
+        exact = preset in ZOO_MESH_EXACT
+        print(f"mesh: {preset} under {rules_name}: initialised in "
+              f"{init_s:.2f} s, weights equal to 5h's; losses "
+              f"{[round(x, 6) for x in losses]}; max rel dloss against "
+              f"5h's steps {max(rel):.3e}; after the first step "
+              f"{n_diff} parameter elements differ from 5h's, by up to "
+              f"{max_diff:.3e}")
+        if exact:
+            check(losses == mine["losses"] and n_diff == 0,
+                  f"{preset}: the mesh's steps are not 5h's bit for bit")
+        else:
+            check(losses[0] == mine["losses"][0]
+                  and max(rel) <= ZOO_MESH_LOSS_RTOL
+                  and max_diff <= 2 * ZOO_LR,
+                  f"{preset}: the mesh's losses {losses} against 5h's "
+                  f"{mine['losses']}, the first update up to {max_diff}")
+        timed = step_s[ZOO_WARMUP:]
+        mean_s = statistics.mean(timed)
+        out = {}
+
+        def profiled():
+            out["opt_state"], _ = _zoo_mesh_step(torch, loss_fn, model,
+                                                 params, opt, opt_state,
+                                                 batch, mesh, rules)
+        device_ms = _profile(
+            torch, profiled,
+            f"one training step of {preset} on the mesh, {rules_name}", 10,
+            convs=True)
+        opt_state = out.pop("opt_state")
+        added = ("not measured" if device_ms is None or mine["device_ms"]
+                 is None else f"{device_ms - mine['device_ms']:.3f} ms")
+        print(f"mesh: {preset}: {ZOO_STEPS} timed steps "
+              f"{[round(t * 1e3, 2) for t in timed]} ms; mean "
+              f"{mean_s * 1e3:.2f} ms/step (5h: {mine['ms']:.2f}), "
+              f"{items / mean_s:.2f} items/s (5h: {mine['items_s']:.2f}); "
+              f"peak {peak / 2**30:.2f} GiB above the memory held before "
+              f"(5h: {mine['peak_gib']:.2f}); the mesh adds {added} of "
+              f"device time to a step")
+        if preset == "t5-base":
+            state = {"params": model, "opt_state": opt_state,
+                     "step": torch.full((), ZOO_WARMUP + ZOO_STEPS + 1,
+                                        dtype=torch.int32, device=DEVICE)}
+            del params, model, opt_state
+            _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch)
+            del state
+        else:
+            del model, params, opt_state
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(_counts(fa) == (0, 0, 0), "the zoo's models launched a flash "
+          "kernel on the mesh")
+
+
+def _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch):
+    """``state`` (t5-base's on the mesh, tp_fsdp_rules()) saved into a
+    temporary directory, then one more step as the reference; states of
+    other seeds resume it under the same rules (load_for_rank) and under
+    the all-None rules (restore_on_mesh), and their next step must be the
+    reference's bit for bit."""
+    from ray_tpu_torch.parallel import optim, tp_fsdp_rules
+    from ray_tpu_torch.train import (CheckpointManager, latest_checkpoint,
+                                     restore_train_state, save_train_state)
+    from ray_tpu_torch.train.torch.checkpoint import restore_route
+
+    def step(st, rules, opt):
+        params = dict(st["params"].named_parameters())
+        opt_state, loss = _zoo_mesh_step(torch, loss_fn, st["params"],
+                                         params, opt, st["opt_state"], batch,
+                                         mesh, rules)
+        st = {**st, "opt_state": opt_state, "step": st["step"] + 1}
+        return st, float(loss), _state_fingerprint(torch, st)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        saved = _state_fingerprint(torch, state)
+        manager = CheckpointManager(root, "chip-smoke-zoo")
+        t0 = time.perf_counter()
+        handle = save_train_state(state, manager, mesh, tp_fsdp_rules())
+        save_s = time.perf_counter() - t0
+        check(handle is not None, "the save committed no checkpoint")
+        on_disk = sum(f.stat().st_size for f in pathlib.Path(root).iterdir())
+        print(f"ckpt: t5-base AdamW state after {int(state['step'])} steps "
+              f"on the mesh saved: {len(handle.manifest['params'])} leaves, "
+              f"{on_disk} bytes on disk in {save_s:.3f} s "
+              f"({on_disk / save_s / 1e9:.3f} GB/s)")
+        opt = optim.adamw(lambda c: torch.full((), ZOO_LR, device=DEVICE),
+                          weight_decay=0.0)
+        _, ref_loss, ref_print = step(state, tp_fsdp_rules(), opt)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for rules_name, rules, seed, route in (
+                ("tp_fsdp_rules()", tp_fsdp_rules(), 1, "load_for_rank"),
+                ("rules all None (bench.py)", _all_rules(), 2,
+                 "restore_on_mesh")):
+            model, _, opt, opt_state = _zoo_mesh_state(torch, module, cfg,
+                                                       mesh, rules, seed)
+            fresh = {"params": model, "opt_state": opt_state,
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=DEVICE)}
+            ckpt = latest_checkpoint(manager)
+            got = restore_route(ckpt, fresh, mesh, rules)
+            check(got == route, f"t5-base, {rules_name}: restore route "
+                  f"{got}, expected {route}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh = restore_train_state(fresh, ckpt, mesh, rules)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(torch.equal(_state_fingerprint(torch, fresh), saved),
+                  f"t5-base, {rules_name}: the restored state differs from "
+                  f"the saved one")
+            _, loss, prints = step(fresh, rules, opt)
+            check(loss == ref_loss and torch.equal(prints, ref_print),
+                  f"t5-base, {rules_name}: the resumed step's loss {loss} "
+                  f"against the uninterrupted {ref_loss}")
+            print(f"ckpt: t5-base, {rules_name}: restored by {route} in "
+                  f"{restore_s:.3f} s ({on_disk / restore_s / 1e9:.3f} GB/s),"
+                  f" the state equal to the saved one; the next step's loss "
+                  f"{loss} and state bit-equal to the uninterrupted run's")
+            del fresh, model, opt_state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), f"{root} was not deleted")
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -2416,7 +2685,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5g; returns the kernels line's rows."""
+    """Phases 2-5i; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -2450,8 +2719,10 @@ def _main_phases(torch):
     k1_llama, k2_llama, k3_llama = _timed("5b", phase_llama_training, torch)
     _timed("5c", phase_llama_small, torch)
     _timed("4e", phase_diffusion_serving, torch)
-    _timed("5h", phase_zoo_training, torch)
+    zoo_ref = _timed("5h", phase_zoo_training, torch)
     _timed("5h (tiny)", phase_zoo_small, torch)
+    _timed("5i", phase_zoo_mesh, torch, mesh, zoo_ref)
+    del zoo_ref
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [

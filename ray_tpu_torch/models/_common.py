@@ -1,13 +1,31 @@
 """Pieces the port's models share: the rounding of JAX's python scalars,
-block rematerialisation, and the limits that raise until the ROADMAP's
-items 12 and 13."""
+block rematerialisation, the placing of a model on a mesh (:func:`build`,
+:func:`draw`), the vocab-parallel embedding and cross-entropy, the losses'
+global denominators over a batch split across data ranks, and the limit
+that raise (ROADMAP.md's item 12, and the zoo's limits on a mesh).
+
+A model is placed by its module's ``param_specs`` (``parallel.sharding.
+shard_model``). Inside a forward each rank then computes on its local
+``tp`` blocks; a loss over a batch whose rows are split over the data
+axes (``parallel.mesh.registered_mesh`` makes the mesh and the rules
+current, ``parallel.collectives.batch_layout`` reads them) returns this
+rank's *share*: its own sum over the global count. Summed over the data
+ranks the shares are the global loss, as GSPMD's mean over the global
+batch; FSDP2 averages the gradients over those ranks, so a caller steps
+on ``share * batch_blocks()``, as ``parallel.train_step`` does.
+"""
 
 from __future__ import annotations
 
 from functools import partial
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
 
 
 def as_dtype(value: float, dtype: torch.dtype) -> float:
@@ -25,15 +43,192 @@ def checkpointed(fn, remat: bool):
     return fn
 
 
-def check_unplaced(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "placing the diffusion UNet, ViT, BERT or T5 on a mesh waits "
-            "for ROADMAP.md queue 1, item 13")
-
-
 def check_unstacked(rules) -> None:
     if rules.layers is not None:
         raise NotImplementedError(
             f"rules.layers={rules.layers!r} (the stacked layer axis over "
             f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
+
+
+def check_whole_sequence(rules) -> None:
+    """BERT and T5 take whole sequences: their attention (T5's relative
+    bias too) over a sequence split across ``sp`` is not ported."""
+    if rules.sequence is not None:
+        raise NotImplementedError(
+            f"rules.sequence={rules.sequence!r}: BERT and T5 on a sequence "
+            f"split over a mesh axis are not ported (ROADMAP.md, the zoo's "
+            f"limits on a mesh)")
+
+
+# -- placing ------------------------------------------------------------
+
+def build(model_cls, param_specs, cfg, device: DeviceLike = None, mesh=None,
+          rules=None) -> nn.Module:
+    """``model_cls(cfg)`` with uninitialised parameters: on ``device``,
+    or, with a mesh, allocated as placed there by ``param_specs(cfg,
+    rules)`` (default ``ShardingRules()``), each rank holding its blocks
+    only. Every model's ``init`` and ``from_jax_params`` build here."""
+    if mesh is None:
+        return model_cls(cfg, device)
+    from ray_tpu_torch.parallel.sharding import ShardingRules, shard_model
+    specs = param_specs(cfg, rules or ShardingRules())
+    model = shard_model(model_cls(cfg, "meta"), mesh, specs)
+    return model.to_empty(device=resolve_device(device))
+
+
+def draw(model: nn.Module, generator: torch.Generator,
+         stds: Dict[str, float], fill) -> nn.Module:
+    """Each parameter whose leaf name is in ``stds`` drawn from N(0, std²)
+    by ``generator`` whole, in ``named_parameters`` order, of which this
+    rank keeps its block (all of it off a mesh); every other set to
+    ``fill(leaf)``. So a mesh gives the same global values as one device
+    with the same seed, and holds one whole tensor at a time."""
+    from ray_tpu_torch.parallel.sharding import local, local_block
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in stds:
+                value = torch.randn(p.shape, generator=generator,
+                                    dtype=torch.float32, device=p.device)
+                local(p).copy_(local_block(value.mul_(stds[leaf]), p))
+            else:
+                local(p).fill_(fill(leaf))
+    return model
+
+
+# -- vocab-parallel embedding and cross-entropy --------------------------
+
+def embed(tokens, wte):
+    """``F.embedding(tokens, wte)``; on a vocab split over tp, this rank's
+    rows (zero for ids outside its block) summed over the group."""
+    from ray_tpu_torch.parallel.sharding import from_tp, tp_local
+    table, vocab = tp_local(wte)
+    if vocab is None:
+        return F.embedding(tokens, table)
+    n = table.shape[0]
+    ids = tokens - vocab.index * n
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(ids.clamp(0, n - 1), table)
+    return from_tp(rows.masked_fill(~inside[..., None], 0.0), vocab)
+
+
+def ce_stats(logits, targets, mask, z_loss: float = 0.0, vocab=None):
+    """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
+    hits by first-max argmax, as ``jnp.argmax``. With ``vocab`` (an
+    ``AxisShard``) the slab is this rank's block of a vocab split over
+    tp."""
+    logits = logits.float()
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        hits = logits.argmax(-1) == targets
+    else:
+        logz, tgt, hits = vocab_parallel_stats(logits, targets, vocab)
+    nll = logz - tgt
+    if z_loss:
+        nll = nll + z_loss * logz ** 2
+    return (nll * mask).sum(), (hits.float() * mask).sum()
+
+
+def vocab_parallel_stats(logits, targets, vocab):
+    """(logsumexp, target logit, first-max argmax == target) over the
+    whole vocab from this rank's block ``[start, start + n)`` of the
+    logits: explicit max and sum reductions over tp, no gathered logits.
+    On one rank each is the plain formula's value exactly."""
+    from ray_tpu_torch.parallel.sharding import all_reduce, from_tp
+    max_op, min_op = torch.distributed.ReduceOp.MAX, \
+        torch.distributed.ReduceOp.MIN
+    n = logits.shape[-1]
+    start = vocab.index * n
+    lse = torch.logsumexp(logits, dim=-1)
+    top = all_reduce(lse, vocab.group, max_op)
+    logz = top + torch.log(from_tp(torch.exp(lse - top), vocab))
+    ids = targets.long() - start
+    inside = (ids >= 0) & (ids < n)
+    tgt = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = from_tp(tgt.masked_fill(~inside, 0.0), vocab)
+    arg = logits.detach().argmax(-1)
+    best = torch.gather(logits.detach(), -1, arg[..., None])[..., 0]
+    top_best = all_reduce(best, vocab.group, max_op)
+    first = torch.where(best == top_best, arg + start, n * vocab.size)
+    first = all_reduce(first, vocab.group, min_op)
+    return logz, tgt, first == targets
+
+
+# -- losses over a batch split across data ranks --------------------------
+
+def batch_groups() -> Tuple:
+    """The axes (``AxisShard``\\ s of more than one rank) the current
+    step's batch rows are split over: those of the registered mesh and
+    rules (``parallel.mesh.registered_mesh``), none outside one. A model
+    of the zoo splits no sequence: ``rules.sequence`` raises."""
+    from ray_tpu_torch.parallel import collectives
+    groups, seq = collectives.batch_layout()
+    if seq is not None:
+        raise NotImplementedError(
+            "the sequence split over 'sp' (rules.sequence) is GPT's and "
+            "Llama's; the zoo's models take whole sequences")
+    return groups
+
+
+def batch_blocks(groups=None) -> int:
+    """How many blocks the batch rows are split into (1 off a mesh): the
+    factor by which a step scales a loss share before FSDP2's average."""
+    n = 1
+    for g in batch_groups() if groups is None else groups:
+        n *= g.size
+    return n
+
+
+def batch_rows(n_local: int, groups=None) -> Tuple[int, slice]:
+    """(the global batch's rows, this rank's rows of it), for a block of
+    ``n_local`` rows: the blocks lie row-major over the batch axes."""
+    groups = batch_groups() if groups is None else groups
+    index = 0
+    for g in groups:
+        index = index * g.size + g.index
+    return n_local * batch_blocks(groups), slice(index * n_local,
+                                                 (index + 1) * n_local)
+
+
+def batch_sum(x, groups):
+    """``x`` summed over the process groups the batch is split over."""
+    from ray_tpu_torch.parallel.sharding import all_reduce
+    for group in groups:
+        x = all_reduce(x, group)
+    return x
+
+
+def loss_and_metrics(nll_sum, hit_sum, mask32, groups, aux=None,
+                     aux_weight: float = 0.0):
+    """(this rank's Σ nll over the global count of masked tokens, plus
+    ``aux_weight`` times its share of the MoE aux term when there is one;
+    the global {"loss", "accuracy", "perplexity"}). Summed over the ranks
+    of ``groups``, the first is the global loss, so the gradients are
+    summed over them, never averaged."""
+    denom = torch.clamp_min(batch_sum(mask32.sum(), groups), 1.0)
+    share = nll_sum / denom
+    ce = batch_sum(nll_sum.detach(), groups) / denom
+    acc = batch_sum(hit_sum.detach(), groups) / denom
+    loss = ce
+    if aux is not None:
+        share = share + aux_weight * aux
+        loss = ce + aux_weight * batch_sum(aux.detach(), groups)
+    # Perplexity from the cross-entropy alone, as in the JAX package.
+    return share, {"loss": loss, "accuracy": acc,
+                   "perplexity": torch.exp(torch.clamp_max(ce, 20.0))}
+
+
+def masked_ce(logits, targets, mask: Optional[torch.Tensor], vocab=None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The zoo's fp32 cross-entropy over ``mask`` (every item when None)
+    of a batch that the current step may split over data ranks →
+    (this rank's share, the global {"loss", "accuracy"})."""
+    groups = batch_groups()
+    mask32 = (torch.ones(targets.shape, dtype=torch.float32,
+                         device=logits.device) if mask is None
+              else mask.float())
+    nll_sum, hit_sum = ce_stats(logits, targets, mask32, vocab=vocab)
+    share, m = loss_and_metrics(nll_sum, hit_sum, mask32,
+                                [g.group for g in groups])
+    return share, {"loss": m["loss"], "accuracy": m["accuracy"]}

@@ -87,18 +87,41 @@ def lookup(tree: Any, key: str) -> Any:
     return node
 
 
+def specs_by_leaf(model: nn.Module, specs: Dict[str, Any]
+                  ) -> Dict[str, Any]:
+    """Each JAX leaf's PartitionSpec, keyed as :func:`leaf_groups`:
+    ``specs`` is the model's ``param_specs``, nested as the JAX tree, in
+    which a stacked leaf's spec lacks its layer axis; here it has that
+    axis's ``None`` first, as the JAX package's spec of the stacked leaf
+    (T5's ``encoder`` and ``decoder`` alike)."""
+    out = {}
+    for key, names in leaf_groups(model).items():
+        spec = lookup(specs, key)
+        out[key] = type(spec)(None, *spec) if stacked(key, names) else spec
+    return out
+
+
+def jax_specs(model: nn.Module, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's nested spec tree of ``model``'s parameters (of
+    :func:`specs_by_leaf`), shaped as :func:`to_jax_params`' tree."""
+    by_leaf = specs_by_leaf(model, specs)
+    return nest(leaf_groups(model), lambda key, names: by_leaf[key])
+
+
 def _assign(param: nn.Parameter, arr, name: str) -> None:
+    from ray_tpu_torch.parallel.sharding import local, local_block
     t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     if tuple(t.shape) != tuple(param.shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
                          f"the config's {tuple(param.shape)}")
-    param.copy_(t)
+    local(param).copy_(local_block(t, param))
 
 
 def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
     """Copy ``params`` (the JAX package's tree, numpy leaves, stacks on a
     leading ``[L, ...]`` axis) into ``model``'s tensors; returns
-    ``model``. Values are copied into each tensor's dtype."""
+    ``model``. Values are copied into each tensor's dtype; a model placed
+    on a mesh takes each rank's block."""
     named = dict(model.named_parameters())
     with torch.no_grad():
         for key, names in leaf_groups(model).items():

@@ -10,6 +10,16 @@ in the compute dtype, the ``-1e9`` padding bias added in fp32 before the
 fp32 softmax; the tanh form of GELU; the masked-LM head over the tied
 ``wte`` and the tanh [CLS] pooler in fp32. With ``remat`` (the default)
 each block is checkpointed while gradients are recorded.
+
+On a mesh (:func:`init` or :func:`from_jax_params` with ``mesh``, placed
+by :func:`param_specs`) each block computes on its local ``tp`` blocks of
+the heads and the FFN's columns, as ``models/gpt.py``'s; the embedding
+takes the vocab-parallel lookup, and the tied MLM head gives this rank's
+block of the vocab, whose cross-entropy :func:`mlm_loss` reduces over tp
+and divides by the global count of masked positions where the current
+step splits the batch over the data ranks (``models/_common.py``). The
+heads read the root's parameters outside ``forward``; they are methods
+(``Bert.mlm_logits``, ``Bert.pooled``) that FSDP2 gathers around.
 """
 
 from __future__ import annotations
@@ -23,12 +33,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import (as_dtype, check_unplaced,
-                                          check_unstacked, checkpointed)
+from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
+                                          check_whole_sequence, checkpointed,
+                                          draw, embed, masked_ce)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
-from ray_tpu_torch.models.gpt import _draw, _empty, _layernorm
-from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+from ray_tpu_torch.models.gpt import _empty, _layernorm
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             from_tp, gather_tp, local, to_tp,
+                                             tp_local)
 
 
 @dataclass(frozen=True)
@@ -102,28 +115,52 @@ class Block(nn.Module):
         self.ln2_b = _empty((d,), cfg, device)
 
     def _attention(self, x, mask_bias):
+        """On a tp mesh over this rank's heads; the output summed."""
         dt = self.cfg.dtype
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt)) + self.bq.to(dt)
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt)) + self.bk.to(dt)
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt)) + self.bv.to(dt)
+        wq, heads = tp_local(self.wq)
+        x = to_tp(x, heads)
+
+        def proj(w, b):
+            return torch.einsum("bsd,dhk->bshk", x, local(w).to(dt)) + \
+                local(b).to(dt)
+
+        q, k, v = proj(wq, self.bq), proj(self.wk, self.bk), \
+            proj(self.wv, self.bv)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / as_dtype(
             math.sqrt(self.cfg.head_dim), dt)
         logits = logits.float() + mask_bias  # fp32 softmax
         probs = torch.softmax(logits, dim=-1).to(dt)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return torch.einsum("bqhd,hdm->bqm", ctx, self.wo.to(dt)) + \
-            self.bo.to(dt)
+        return from_tp(torch.einsum("bqhd,hdm->bqm", ctx,
+                                    local(self.wo).to(dt)), heads) + \
+            local(self.bo).to(dt)
 
     def forward(self, x, mask_bias):
         cfg = self.cfg
         dt = cfg.dtype
         # Post-LN residual order (original BERT): LN(x + sublayer(x)).
-        x = _layernorm(x + self._attention(x, mask_bias), self.ln1_s,
-                       self.ln1_b, cfg.layernorm_eps)
-        hidden = F.gelu(x @ self.wi.to(dt) + self.bi.to(dt),
+        x = _layernorm(x + self._attention(x, mask_bias), local(self.ln1_s),
+                       local(self.ln1_b), cfg.layernorm_eps)
+        wi, mlp = tp_local(self.wi)
+        hidden = F.gelu(to_tp(x, mlp) @ wi.to(dt) + local(self.bi).to(dt),
                         approximate="tanh")
-        ffn = hidden @ self.wo_ff.to(dt) + self.bo_ff.to(dt)
-        return _layernorm(x + ffn, self.ln2_s, self.ln2_b, cfg.layernorm_eps)
+        ffn = from_tp(hidden @ local(self.wo_ff).to(dt), mlp) + \
+            local(self.bo_ff).to(dt)
+        return _layernorm(x + ffn, local(self.ln2_s), local(self.ln2_b),
+                          cfg.layernorm_eps)
+
+
+def _segment_rows(segment_ids, table):
+    """``F.embedding(segment_ids, table)`` for the few segment rows, as a
+    select of each row: its backward sums a row's gradient by a reduction
+    over the positions. The embedding's backward over ids that repeat
+    thousands of times (every position is segment 0 or 1) is not
+    deterministic on the card: two runs of one step gave ``wse`` gradients
+    that differ in ~46% of their elements (tests/measure_zoo_mesh_gap.py)."""
+    rows = table[0].expand(*segment_ids.shape, table.shape[-1])
+    for s in range(1, table.shape[0]):
+        rows = torch.where((segment_ids == s)[..., None], table[s], rows)
+    return rows
 
 
 class Bert(nn.Module):
@@ -132,6 +169,12 @@ class Bert(nn.Module):
     :func:`from_jax_params` (carried over from the JAX package)."""
 
     jax_stacks = {"layers": "blocks"}
+    # On a mesh (sharding.shard_model): FSDP2's units, and the heads'
+    # entries, which read the root's parameters after the encoder.
+    fsdp_methods = ("mlm_logits", "pooled")
+
+    def fsdp_units(self):
+        return tuple(self.blocks)
 
     def __init__(self, cfg: BertConfig, device: DeviceLike = None):
         super().__init__()
@@ -155,22 +198,49 @@ class Bert(nn.Module):
 
     def forward(self, tokens, segment_ids=None, attention_mask=None):
         """→ [B, S, d_model] contextual embeddings (:func:`encode`)."""
+        return self._encode(tokens, segment_ids, attention_mask)
+
+    def _encode(self, tokens, segment_ids=None, attention_mask=None):
         cfg = self.cfg
         S = tokens.shape[1]
         if segment_ids is None:
             segment_ids = torch.zeros_like(tokens)
         if attention_mask is None:
             attention_mask = torch.ones_like(tokens)
-        x = (F.embedding(tokens, self.wte) + self.wpe[None, :S]
-             + F.embedding(segment_ids, self.wse))
-        x = _layernorm(x.to(cfg.dtype), self.emb_ln_s, self.emb_ln_b,
-                       cfg.layernorm_eps)
+        x = (embed(tokens, self.wte) + local(self.wpe)[None, :S]
+             + _segment_rows(segment_ids, local(self.wse)))
+        x = _layernorm(x.to(cfg.dtype), local(self.emb_ln_s),
+                       local(self.emb_ln_b), cfg.layernorm_eps)
         # [B, 1, 1, S] additive bias: -1e9 on padding keys.
         mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
                                 -1e9).float()
         for block in self.blocks:
             x = checkpointed(block, cfg.remat)(x, mask_bias)
         return x
+
+    def mlm_logits(self, tokens, segment_ids=None, attention_mask=None,
+                   whole: bool = True):
+        """The masked-LM head over the tied embedding → [B, S, vocab]
+        (fp32); with ``whole=False`` (logits, how the vocab is split over
+        tp or None): on a mesh this rank's block of the vocab."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        x = self._encode(tokens, segment_ids, attention_mask)
+        x = F.gelu(x @ local(self.mlm_w).to(dt) + local(self.mlm_b).to(dt),
+                   approximate="tanh")
+        x = _layernorm(x, local(self.mlm_ln_s), local(self.mlm_ln_b),
+                       cfg.layernorm_eps)
+        wte, vocab = tp_local(self.wte)
+        logits = to_tp(x.float(), vocab) @ wte.float().T
+        logits = logits + local(self.mlm_bias).float()
+        return gather_tp(logits, vocab) if whole else (logits, vocab)
+
+    def pooled(self, tokens, segment_ids=None, attention_mask=None):
+        """The tanh [CLS] pooler → [B, d_model]."""
+        x = self._encode(tokens, segment_ids, attention_mask)
+        cls = x[:, 0].float()
+        return torch.tanh(cls @ local(self.pooler_w).float()
+                          + local(self.pooler_b).float())
 
 
 def encode(model: Bert, tokens, segment_ids=None, attention_mask=None):
@@ -182,32 +252,25 @@ def encode(model: Bert, tokens, segment_ids=None, attention_mask=None):
 
 def mlm_logits(model: Bert, tokens, segment_ids=None, attention_mask=None):
     """Masked-LM head over the tied embedding → [B, S, vocab] (fp32)."""
-    cfg = model.cfg
-    dt = cfg.dtype
-    x = model(tokens, segment_ids, attention_mask)
-    x = F.gelu(x @ model.mlm_w.to(dt) + model.mlm_b.to(dt),
-               approximate="tanh")
-    x = _layernorm(x, model.mlm_ln_s, model.mlm_ln_b, cfg.layernorm_eps)
-    logits = x.float() @ model.wte.float().T
-    return logits + model.mlm_bias.float()
+    return model.mlm_logits(tokens, segment_ids, attention_mask)
 
 
 def pooled(model: Bert, tokens, segment_ids=None, attention_mask=None):
     """The tanh [CLS] pooler → [B, d_model] (sentence representation)."""
-    x = model(tokens, segment_ids, attention_mask)
-    cls = x[:, 0].float()
-    return torch.tanh(cls @ model.pooler_w.float() + model.pooler_b.float())
+    return model.pooled(tokens, segment_ids, attention_mask)
 
 
 def mlm_loss(model: Bert, tokens, targets, mask_positions,
              attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy over masked positions (mask_positions is 1
-    where a token was masked and must be predicted)."""
-    logits = mlm_logits(model, tokens, attention_mask=attention_mask)
-    logp = torch.log_softmax(logits, dim=-1)
-    picked = torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    weights = mask_positions.float()
-    return -(picked * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
+    where a token was masked and must be predicted). Where the current
+    step splits the batch over data ranks (``parallel.mesh.
+    registered_mesh``), the inputs are this rank's rows and the result is
+    this rank's share: its sum over the global count of masked positions,
+    as GSPMD's mean over the global batch divides."""
+    logits, vocab = model.mlm_logits(tokens, attention_mask=attention_mask,
+                                     whole=False)
+    return masked_ce(logits, targets, mask_positions, vocab)[0]
 
 
 # -- parameters ---------------------------------------------------------
@@ -250,25 +313,39 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
     return rules.spec("batch", "sequence")
 
 
+def _build(cfg, device, mesh, rules) -> Bert:
+    """:func:`build`, after the check that the rules keep the sequence
+    whole."""
+    if mesh is not None and rules is not None:
+        check_whole_sequence(rules)
+    return build(Bert, param_specs, cfg, device, mesh, rules)
+
+
 def init(cfg: BertConfig, generator: torch.Generator,
-         device: DeviceLike = None, mesh=None) -> Bert:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> Bert:
     """A model with the JAX package's init distributions (every weight
     N(0, 0.02²); LayerNorm scales 1, biases 0), drawn from ``generator``,
     which must live on ``device``. The draws differ from ``jax.random``'s
-    for the same seed."""
-    check_unplaced(mesh)
+    for the same seed. With ``mesh`` the model is placed there by
+    :func:`param_specs` of ``rules`` (default ``ShardingRules()``) and
+    holds the same global values."""
     normal = dict.fromkeys(("wte", "wpe", "wse", "pooler_w", "mlm_w", "wq",
                             "wk", "wv", "wo", "wi", "wo_ff"), 0.02)
-    return _draw(Bert(cfg, device), generator, normal,
-                 lambda leaf: 1.0 if leaf.endswith("_s") else 0.0)
+    return draw(_build(cfg, device, mesh, rules),
+                generator, normal,
+                lambda leaf: 1.0 if leaf.endswith("_s") else 0.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: BertConfig,
-                    device: DeviceLike = None) -> Bert:
+                    device: DeviceLike = None, mesh=None,
+                    rules: Optional[ShardingRules] = None) -> Bert:
     """The port's model holding exactly the values of ``params``: the
     nested dict that ``ray_tpu.models.bert.init`` returns, with numpy
-    leaves and layers stacked on a leading ``[L, ...]`` axis."""
-    return load_jax_params(Bert(cfg, device), params)
+    leaves and layers stacked on a leading ``[L, ...]`` axis. With
+    ``mesh`` the model is placed as :func:`init` places it."""
+    return load_jax_params(
+        _build(cfg, device, mesh, rules), params)
 
 
 __all__ = ["Bert", "BertConfig", "Block", "PRESETS", "batch_spec", "config",

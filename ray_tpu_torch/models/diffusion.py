@@ -25,6 +25,14 @@ The DDIM timesteps are ``jnp.linspace``'s float32 values truncated to int
 (:func:`ddim_timesteps`). Randomness is an explicit ``torch.Generator``;
 :func:`ddim_sample` takes ``x_T`` and :func:`loss_fn` takes ``t`` and
 ``eps`` so that a caller can hold the port to draws made elsewhere.
+
+On a mesh (:func:`init` or :func:`from_jax_params` with ``mesh``) every
+weight is replicated (:func:`param_specs`) and the batch is split over
+the data axes: FSDP2 averages the gradients over ``dp`` (its units are
+the residual blocks and the mid attention), and under ``fsdp_rules`` every
+weight stays out of FSDP2 and ``sharding.average_replicated_grads``
+averages them. :func:`loss_fn` draws ``t`` and ``eps`` for the global
+batch and keeps this rank's rows, so one seed gives one loss on any mesh.
 """
 
 from __future__ import annotations
@@ -39,11 +47,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import as_dtype, check_unplaced
+from ray_tpu_torch.models._common import (as_dtype, batch_groups,
+                                          batch_rows, batch_sum, build)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params, nest,
                                           to_jax_params)
 from ray_tpu_torch.models.gpt import _empty
-from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             local, local_block)
 
 
 @dataclass(frozen=True)
@@ -134,6 +144,12 @@ def timestep_embedding(t, dim: int):
 
 # -- modules ------------------------------------------------------------
 
+def _locals(module: nn.Module):
+    """{name: local block} of the module's own parameters: on a mesh each
+    is a DTensor, replicated, so the block is the whole tensor."""
+    return {n: local(p) for n, p in module.named_parameters(recurse=False)}
+
+
 class ResBlock(nn.Module):
     """One residual block; names and shapes of the JAX package's
     ``_res_block_init`` dict."""
@@ -155,14 +171,15 @@ class ResBlock(nn.Module):
             self.skip = _empty((1, 1, cin, cout), cfg, device)
 
     def forward(self, x, temb):
-        h = _groupnorm(x, self.gn1_scale, self.gn1_bias, self.n_groups)
-        h = _conv(F.silu(h), self.conv1, self.conv1_b)
-        t = F.silu(temb) @ self.time_w.to(temb.dtype) + self.time_b.to(
+        p = _locals(self)
+        h = _groupnorm(x, p["gn1_scale"], p["gn1_bias"], self.n_groups)
+        h = _conv(F.silu(h), p["conv1"], p["conv1_b"])
+        t = F.silu(temb) @ p["time_w"].to(temb.dtype) + p["time_b"].to(
             temb.dtype)
         h = h + t[:, None, None, :].to(h.dtype)
-        h = _groupnorm(h, self.gn2_scale, self.gn2_bias, self.n_groups)
-        h = _conv(F.silu(h), self.conv2, self.conv2_b)
-        skip = _conv(x, self.skip) if hasattr(self, "skip") else x
+        h = _groupnorm(h, p["gn2_scale"], p["gn2_bias"], self.n_groups)
+        h = _conv(F.silu(h), p["conv2"], p["conv2_b"])
+        skip = _conv(x, p["skip"]) if "skip" in p else x
         return skip + h
 
 
@@ -179,15 +196,16 @@ class Attention(nn.Module):
 
     def forward(self, x):
         B, H, W, C = x.shape
-        h = _groupnorm(x, self.gn_scale, self.gn_bias, self.n_groups)
+        p = _locals(self)
+        h = _groupnorm(x, p["gn_scale"], p["gn_bias"], self.n_groups)
         flat = h.reshape(B, H * W, C)
         dt = flat.dtype
-        q = flat @ self.wq.to(dt)
-        k = flat @ self.wk.to(dt)
-        v = flat @ self.wv.to(dt)
+        q = flat @ p["wq"].to(dt)
+        k = flat @ p["wk"].to(dt)
+        v = flat @ p["wv"].to(dt)
         logits = (q @ k.transpose(1, 2) / as_dtype(math.sqrt(C), dt)).float()
         probs = torch.softmax(logits, dim=-1).to(dt)
-        out = (probs @ v) @ self.wo.to(dt)
+        out = (probs @ v) @ p["wo"].to(dt)
         return x + out.reshape(B, H, W, C)
 
 
@@ -206,10 +224,11 @@ class Stage(nn.Module):
             setattr(self, kind + "_b", _empty((c,), cfg, device))
 
     def resample(self, h):
+        p = _locals(self)
         if self.kind == "down":
-            return _conv(h, self.down, self.down_b, stride=2)
+            return _conv(h, p["down"], p["down_b"], stride=2)
         h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return _conv(h, self.up, self.up_b)
+        return _conv(h, p["up"], p["up_b"])
 
 
 class UNet(nn.Module):
@@ -218,6 +237,15 @@ class UNet(nn.Module):
     the JAX package)."""
 
     jax_stacks: Dict[str, str] = {}
+    # On a mesh (sharding.shard_model): forward is the only entry.
+    fsdp_methods = ()
+
+    def fsdp_units(self):
+        """FSDP2's units: each stage's residual blocks, and the mid
+        blocks."""
+        blocks = [b for stage in self.down for b in stage.blocks]
+        blocks += [self.mid1, self.mid_attn, self.mid2]
+        return (*blocks, *(b for stage in self.up for b in stage.blocks))
 
     def __init__(self, cfg: UNetConfig, device: DeviceLike = None):
         super().__init__()
@@ -261,12 +289,13 @@ class UNet(nn.Module):
         """Predicted noise, fp32 [B, H, W, C], of ``x`` [B, H, W, C] at
         timesteps ``t`` [B] (int)."""
         cfg = self.cfg
+        p = _locals(self)
         x = x.to(cfg.dtype)
         temb = timestep_embedding(t, cfg.time_dim // 4)
-        temb = temb @ self.time_w1.float() + self.time_b1.float()
-        temb = F.silu(temb) @ self.time_w2.float() + self.time_b2.float()
+        temb = temb @ p["time_w1"].float() + p["time_b1"].float()
+        temb = F.silu(temb) @ p["time_w2"].float() + p["time_b2"].float()
 
-        h = _conv(x, self.conv_in, self.conv_in_b)
+        h = _conv(x, p["conv_in"], p["conv_in_b"])
         skips = [h]
         for stage in self.down:
             for block in stage.blocks:
@@ -287,8 +316,8 @@ class UNet(nn.Module):
                 h = stage.resample(h)
                 skips.pop()  # consume the post-downsample skip at this res
 
-        h = _groupnorm(h, self.gn_out_scale, self.gn_out_bias, cfg.n_groups)
-        out = _conv(F.silu(h), self.conv_out, self.conv_out_b)
+        h = _groupnorm(h, p["gn_out_scale"], p["gn_out_bias"], cfg.n_groups)
+        out = _conv(F.silu(h), p["conv_out"], p["conv_out_b"])
         return out.float()
 
 
@@ -300,14 +329,15 @@ def forward(model: UNet, x, t):
 # -- parameters ---------------------------------------------------------
 
 def init(cfg: UNetConfig, generator: torch.Generator,
-         device: DeviceLike = None, mesh=None) -> UNet:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> UNet:
     """A model with the JAX package's init distributions (convs N(0,
     1/fan_in), dense N(0, 1/cin), ``conv2``, ``wo`` and ``conv_out`` scaled
     by 1e-2; GroupNorm scales 1, biases 0), drawn from ``generator``,
     which must live on ``device``. The draws differ from ``jax.random``'s
-    for the same seed."""
-    check_unplaced(mesh)
-    model = UNet(cfg, device)
+    for the same seed. With ``mesh`` the model is placed there (every
+    weight replicated) and holds the same values."""
+    model = build(UNet, param_specs, cfg, device, mesh, rules)
     small = ("conv2", "wo", "conv_out")
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -315,20 +345,23 @@ def init(cfg: UNetConfig, generator: torch.Generator,
             if p.dim() >= 2:  # a conv [kh, kw, cin, cout] or dense [cin, cout]
                 std = (1e-2 if leaf in small else 1.0) / math.sqrt(
                     math.prod(p.shape[:-1]))
-                draw = torch.randn(p.shape, generator=generator,
-                                   dtype=torch.float32, device=p.device)
-                p.copy_(draw * std)
+                value = torch.randn(p.shape, generator=generator,
+                                    dtype=torch.float32, device=p.device)
+                local(p).copy_(local_block(value * std, p))
             else:
-                p.fill_(1.0 if leaf.endswith("_scale") else 0.0)
+                local(p).fill_(1.0 if leaf.endswith("_scale") else 0.0)
     return model
 
 
 def from_jax_params(params: Dict[str, Any], cfg: UNetConfig,
-                    device: DeviceLike = None) -> UNet:
+                    device: DeviceLike = None, mesh=None,
+                    rules: Optional[ShardingRules] = None) -> UNet:
     """The port's model holding exactly the values of ``params``: the
     nested tree that ``ray_tpu.models.diffusion.init`` returns, with numpy
-    leaves. Values are copied into ``cfg.param_dtype``."""
-    return load_jax_params(UNet(cfg, device), params)
+    leaves. Values are copied into ``cfg.param_dtype``. With ``mesh`` the
+    model is placed as :func:`init` places it."""
+    return load_jax_params(
+        build(UNet, param_specs, cfg, device, mesh, rules), params)
 
 
 def param_specs(cfg: UNetConfig, rules: ShardingRules):
@@ -390,22 +423,36 @@ def ddim_timesteps(n_timesteps: int, n_steps: int) -> np.ndarray:
 def loss_fn(model: UNet, images, generator: Optional[torch.Generator] = None,
             t=None, eps=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Simple DDPM epsilon-prediction MSE loss. ``t`` [B] and ``eps``
-    (images' shape, fp32) are drawn from ``generator`` unless given."""
+    (images' shape, fp32) are drawn from ``generator`` unless given.
+
+    Where the current step splits the batch over data ranks
+    (``parallel.mesh.registered_mesh``), ``images`` (and ``t``, ``eps``
+    when given) are this rank's rows: ``t`` and ``eps`` are drawn for the
+    whole global batch, every rank alike, and this rank keeps its rows;
+    the first value is this rank's share (its mean over the count of
+    blocks) and the metric the global batch's loss."""
     cfg = model.cfg
     dev = images.device
     alphas_bar = torch.from_numpy(_schedule(cfg)[1]).to(dev)
-    B = images.shape[0]
+    groups = batch_groups()
+    B, rows = batch_rows(images.shape[0], groups)
     if t is None:
         t = torch.randint(0, cfg.n_timesteps, (B,), generator=generator,
-                          device=dev)
+                          device=dev)[rows]
     if eps is None:
-        eps = torch.randn(images.shape, generator=generator,
-                          dtype=torch.float32, device=dev)
+        eps = torch.randn((B,) + tuple(images.shape[1:]),
+                          generator=generator, dtype=torch.float32,
+                          device=dev)[rows]
     ab = alphas_bar[t.long()][:, None, None, None]
     x_t = torch.sqrt(ab) * images.float() + torch.sqrt(1 - ab) * eps
     pred = model(x_t, t)
     loss = ((pred - eps) ** 2).mean()
-    return loss, {"loss": loss.detach()}
+    if not groups:
+        return loss, {"loss": loss.detach()}
+    # Every block holds as many items: the global mean is the blocks'.
+    share = loss / (B // images.shape[0])
+    return share, {"loss": batch_sum(share.detach(),
+                                     [g.group for g in groups])}
 
 
 @torch.no_grad()

@@ -49,7 +49,8 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import check_unstacked
+from ray_tpu_torch.models._common import (build, ce_stats, check_unstacked,
+                                          draw, embed, loss_and_metrics)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.ops import ring_attention as ring
@@ -59,10 +60,8 @@ from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import current_mesh
 from ray_tpu_torch.parallel.sharding import (AxisShard, PartitionSpec,
                                              ShardingRules, all_reduce,
-                                             ep_local,
-                                             from_tp, gather_tp, local,
-                                             local_block, shard_model, to_tp,
-                                             tp_local)
+                                             ep_local, from_tp, gather_tp,
+                                             local, to_tp, tp_local)
 
 
 @dataclass(frozen=True)
@@ -586,6 +585,11 @@ class GPT(nn.Module):
     from the JAX package)."""
 
     jax_stacks = {"layers": "blocks"}
+    # On a mesh (sharding.shard_model): FSDP2's units, and loss_fn's entry.
+    fsdp_methods = ("hidden_states",)
+
+    def fsdp_units(self):
+        return tuple(self.blocks)
 
     def __init__(self, cfg: GPTConfig, device: DeviceLike = None):
         super().__init__()
@@ -611,7 +615,7 @@ class GPT(nn.Module):
     def _hidden_states(self, tokens, positions=None):
         if positions is None:
             positions = _positions(tokens)
-        x = _embed(tokens, self.wte).to(self.cfg.dtype)
+        x = embed(tokens, self.wte).to(self.cfg.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             x, a = _remat_block(block, self.cfg)(x, positions, self.cfg)
@@ -655,87 +659,7 @@ def _positions(tokens):
     return (start + torch.arange(S, device=tokens.device)).expand(B, S)
 
 
-def _embed(tokens, wte):
-    """``F.embedding(tokens, wte)``; on a vocab split over tp, this rank's
-    rows (zero for ids outside its block) summed over the group."""
-    table, vocab = tp_local(wte)
-    if vocab is None:
-        return F.embedding(tokens, table)
-    n = table.shape[0]
-    ids = tokens - vocab.index * n
-    inside = (ids >= 0) & (ids < n)
-    rows = F.embedding(ids.clamp(0, n - 1), table)
-    return from_tp(rows.masked_fill(~inside[..., None], 0.0), vocab)
-
-
 # -- loss ---------------------------------------------------------------
-
-def _ce_stats(logits, targets, mask, z_loss: float,
-              vocab: Optional[AxisShard] = None):
-    """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
-    hits by first-max argmax, as ``jnp.argmax``. With ``vocab`` the slab
-    is this rank's block of a vocab split over tp."""
-    logits = logits.float()
-    if vocab is None:
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        hits = logits.argmax(-1) == targets
-    else:
-        logz, tgt, hits = _vocab_parallel_stats(logits, targets, vocab)
-    nll = logz - tgt
-    if z_loss:
-        nll = nll + z_loss * logz ** 2
-    return (nll * mask).sum(), (hits.float() * mask).sum()
-
-
-def _vocab_parallel_stats(logits, targets, vocab: AxisShard):
-    """(logsumexp, target logit, first-max argmax == target) over the
-    whole vocab from this rank's block ``[start, start + n)`` of the
-    logits: explicit max and sum reductions over tp, no gathered logits.
-    On one rank each is the plain formula's value exactly."""
-    n = logits.shape[-1]
-    start = vocab.index * n
-    lse = torch.logsumexp(logits, dim=-1)
-    top = all_reduce(lse, vocab.group, torch.distributed.ReduceOp.MAX)
-    logz = top + torch.log(from_tp(torch.exp(lse - top), vocab))
-    ids = targets.long() - start
-    inside = (ids >= 0) & (ids < n)
-    tgt = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
-    tgt = from_tp(tgt.masked_fill(~inside, 0.0), vocab)
-    arg = logits.detach().argmax(-1)
-    best = torch.gather(logits.detach(), -1, arg[..., None])[..., 0]
-    top_best = all_reduce(best, vocab.group, torch.distributed.ReduceOp.MAX)
-    first = torch.where(best == top_best, arg + start, n * vocab.size)
-    first = all_reduce(first, vocab.group, torch.distributed.ReduceOp.MIN)
-    return logz, tgt, first == targets
-
-
-def _batch_sum(x, groups):
-    """``x`` summed over the process groups the batch is split over."""
-    for group in groups:
-        x = all_reduce(x, group)
-    return x
-
-
-def _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups, aux=None,
-                      aux_weight: float = 0.0):
-    """(this rank's Σ nll over the global count of masked tokens, plus
-    ``aux_weight`` times its share of the MoE aux term when there is one;
-    the global {"loss", "accuracy", "perplexity"}). Summed over the ranks
-    of ``batch_groups``, the first is the global loss, so the gradients
-    are summed over them, never averaged."""
-    denom = torch.clamp_min(_batch_sum(mask32.sum(), batch_groups), 1.0)
-    share = nll_sum / denom
-    ce = _batch_sum(nll_sum.detach(), batch_groups) / denom
-    acc = _batch_sum(hit_sum.detach(), batch_groups) / denom
-    loss = ce
-    if aux is not None:
-        share = share + aux_weight * aux
-        loss = ce + aux_weight * _batch_sum(aux.detach(), batch_groups)
-    # Perplexity from the cross-entropy alone, as in the JAX package.
-    return share, {"loss": loss, "accuracy": acc,
-                   "perplexity": torch.exp(torch.clamp_max(ce, 20.0))}
-
 
 def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
             batch_groups=()
@@ -764,7 +688,7 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
 
     def chunk_stats(x_c, t_c, m_c):
         logits, vocab = model._head(x_c)
-        return _ce_stats(logits, t_c, m_c, z_loss, vocab)
+        return ce_stats(logits, t_c, m_c, z_loss, vocab)
 
     T = B * S
     chunk = cfg.loss_chunk
@@ -786,9 +710,9 @@ def loss_fn(model: GPT, tokens, targets, mask=None, z_loss: float = 0.0,
             hit_sum = hit_sum + hit_c
     else:
         nll_sum, hit_sum = chunk_stats(x, targets, mask32)
-    return _loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups,
-                             aux if cfg.is_moe else None,
-                             cfg.router_aux_weight)
+    return loss_and_metrics(nll_sum, hit_sum, mask32, batch_groups,
+                            aux if cfg.is_moe else None,
+                            cfg.router_aux_weight)
 
 
 # -- parameters ---------------------------------------------------------
@@ -838,34 +762,6 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
     return rules.spec("batch", "sequence")
 
 
-def _placed(model_cls, cfg, device, mesh, specs) -> nn.Module:
-    """``model_cls(cfg)`` with uninitialised parameters: on ``device``,
-    or, with a mesh, allocated as placed there by ``specs``."""
-    if mesh is None:
-        return model_cls(cfg, device)
-    model = shard_model(model_cls(cfg, "meta"), mesh, specs)
-    return model.to_empty(device=resolve_device(device))
-
-
-def _draw(model: nn.Module, generator: torch.Generator,
-          stds: Dict[str, float], fill) -> nn.Module:
-    """Each parameter whose leaf name is in ``stds`` drawn from N(0, std²)
-    by ``generator`` whole, in ``named_parameters`` order, of which this
-    rank keeps its block (all of it off a mesh); every other set to
-    ``fill(leaf)``. So a mesh gives the same global values as one device
-    with the same seed, and holds one whole tensor at a time."""
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in stds:
-                draw = torch.randn(p.shape, generator=generator,
-                                   dtype=torch.float32, device=p.device)
-                local(p).copy_(local_block(draw.mul_(stds[leaf]), p))
-            else:
-                local(p).fill_(fill(leaf))
-    return model
-
-
 def init(cfg: GPTConfig, generator: torch.Generator,
          device: DeviceLike = None, mesh=None,
          rules: Optional[ShardingRules] = None) -> GPT:
@@ -876,15 +772,13 @@ def init(cfg: GPTConfig, generator: torch.Generator,
     With ``mesh`` the model is placed there by :func:`param_specs` of
     ``rules`` (default ``ShardingRules()``) and holds the same global
     values."""
-    specs = None if mesh is None else param_specs(
-        cfg, rules or ShardingRules())
-    model = _placed(GPT, cfg, device, mesh, specs)
+    model = build(GPT, param_specs, cfg, device, mesh, rules)
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
               "w_in": std, "router": std, "wo": out_std, "w_out": out_std}
-    return _draw(model, generator, normal,
-                 lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
+    return draw(model, generator, normal,
+                lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: GPTConfig,

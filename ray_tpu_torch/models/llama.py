@@ -49,12 +49,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import check_unstacked
+from ray_tpu_torch.models._common import (build, ce_stats, check_unstacked,
+                                          draw, embed, loss_and_metrics)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
-from ray_tpu_torch.models.gpt import (_ce_stats, _dispatch_attention,
-                                      _dot_attention, _draw, _embed, _empty,
-                                      _loss_and_metrics, _placed, _positions)
+from ray_tpu_torch.models.gpt import (_dispatch_attention, _dot_attention,
+                                      _empty, _positions)
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                              AxisShard, from_tp, gather_tp,
@@ -216,6 +216,11 @@ class Llama(nn.Module):
     from the JAX package)."""
 
     jax_stacks = {"layers": "blocks"}
+    # On a mesh (sharding.shard_model): FSDP2's units, and loss_fn's entry.
+    fsdp_methods = ("hidden_states",)
+
+    def fsdp_units(self):
+        return tuple(self.blocks)
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
         super().__init__()
@@ -239,7 +244,7 @@ class Llama(nn.Module):
         cfg = self.cfg
         if positions is None:
             positions = _positions(tokens)
-        x = _embed(tokens, self.wte).to(cfg.dtype)
+        x = embed(tokens, self.wte).to(cfg.dtype)
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
                 block = partial(checkpoint, block, use_reentrant=False)
@@ -276,8 +281,8 @@ def loss_fn(model: Llama, tokens, targets, mask=None, z_loss: float = 0.0,
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=logits.device)
     mask = mask.float()
-    nll_sum, hit_sum = _ce_stats(logits, targets, mask, z_loss, vocab)
-    return _loss_and_metrics(nll_sum, hit_sum, mask, batch_groups)
+    nll_sum, hit_sum = ce_stats(logits, targets, mask, z_loss, vocab)
+    return loss_and_metrics(nll_sum, hit_sum, mask, batch_groups)
 
 
 # -- parameters ---------------------------------------------------------
@@ -323,14 +328,12 @@ def init(cfg: LlamaConfig, generator: torch.Generator,
     placed there by :func:`param_specs` of ``rules`` (default
     ``ShardingRules()``) and holds the same global values, as
     ``models.gpt.init``."""
-    specs = None if mesh is None else param_specs(
-        cfg, rules or ShardingRules())
-    model = _placed(Llama, cfg, device, mesh, specs)
+    model = build(Llama, param_specs, cfg, device, mesh, rules)
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"wte": std, "lm_head": std, "wq": std, "wk": std, "wv": std,
               "w_gate": std, "w_up": std, "wo": out_std, "w_down": out_std}
-    return _draw(model, generator, normal, lambda leaf: 1.0)
+    return draw(model, generator, normal, lambda leaf: 1.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: LlamaConfig,

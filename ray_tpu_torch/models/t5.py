@@ -11,6 +11,17 @@ compute dtype before the fp32 softmax, the causal fill -1e30; the
 gated-GELU feed-forward (tanh form); the tied head scaled by
 ``d_model ** -0.5`` in the compute dtype. With ``remat`` (the default)
 each block is checkpointed while gradients are recorded.
+
+On a mesh (:func:`init` or :func:`from_jax_params` with ``mesh``, placed
+by :func:`param_specs`) self- and cross-attention compute on this rank's
+``tp`` heads (the relative-bias tables on their columns of those heads)
+and the FFN on its columns, as ``models/gpt.py``'s blocks; the embedding
+takes the vocab-parallel lookup and the tied head gives this rank's block
+of the vocab, whose cross-entropy :func:`loss_fn` reduces over tp and
+divides by the global count of targets where the current step splits the
+batch over the data ranks (``models/_common.py``). ``encode`` and
+``decode`` read the root's parameters; they are methods that FSDP2
+gathers around, as ``forward``.
 """
 
 from __future__ import annotations
@@ -18,19 +29,22 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import (as_dtype, check_unplaced,
-                                          check_unstacked, checkpointed)
+from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
+                                          check_whole_sequence, checkpointed,
+                                          draw, embed, masked_ce)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
-from ray_tpu_torch.models.gpt import _draw, _empty
-from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+from ray_tpu_torch.models.gpt import _empty
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             from_tp, gather_tp, local, to_tp,
+                                             tp_local)
 
 
 @dataclass(frozen=True)
@@ -126,6 +140,9 @@ def _bucket_table(q_len: int, k_len: int, bidirectional: bool,
 
 def _rel_bias(table, q_len: int, k_len: int, bidirectional: bool,
               cfg: T5Config):
+    """[1, H, Q, K] in the compute dtype; on a tp mesh this rank's heads
+    (the table's columns)."""
+    table = local(table)
     buckets = _bucket_table(q_len, k_len, bidirectional, cfg.rel_pos_buckets,
                             cfg.rel_pos_max_distance, table.device)
     bias = table[buckets]  # [Q, K, H]
@@ -146,10 +163,16 @@ class Attention(nn.Module):
         self.wo = _empty((h, hd, d), cfg, device)
 
     def forward(self, q_in, kv_in, bias=None, causal: bool = False):
+        """On a tp mesh over this rank's heads (``bias`` over the same);
+        the output summed. Self-attention passes ``q_in`` as ``kv_in``."""
         dt = self.cfg.dtype
-        q = torch.einsum("bsd,dhk->bshk", q_in, self.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", kv_in, self.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", kv_in, self.wv.to(dt))
+        wq, heads = tp_local(self.wq)
+        self_attn = kv_in is q_in
+        q_in = to_tp(q_in, heads)
+        kv_in = q_in if self_attn else to_tp(kv_in, heads)
+        q = torch.einsum("bsd,dhk->bshk", q_in, wq.to(dt))
+        k = torch.einsum("bsd,dhk->bshk", kv_in, local(self.wk).to(dt))
+        v = torch.einsum("bsd,dhk->bshk", kv_in, local(self.wv).to(dt))
         # The JAX package applies 1/sqrt(head_dim) explicitly (upstream T5
         # folds it into wq's init).
         scale = as_dtype(1.0 / math.sqrt(q.shape[-1]), dt)
@@ -163,7 +186,8 @@ class Attention(nn.Module):
             logits = torch.where(keep, logits, -1e30)
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
+        return from_tp(torch.einsum("bshk,hkd->bsd", out,
+                                    local(self.wo).to(dt)), heads)
 
 
 class EncoderBlock(nn.Module):
@@ -180,15 +204,17 @@ class EncoderBlock(nn.Module):
 
     def _ffn(self, x):
         dt = self.cfg.dtype
-        gate = F.gelu(x @ self.wi_0.to(dt), approximate="tanh")
-        up = x @ self.wi_1.to(dt)
-        return (gate * up) @ self.wo_ff.to(dt)
+        wi_0, mlp = tp_local(self.wi_0)
+        x = to_tp(x, mlp)
+        gate = F.gelu(x @ wi_0.to(dt), approximate="tanh")
+        up = x @ local(self.wi_1).to(dt)
+        return from_tp((gate * up) @ local(self.wo_ff).to(dt), mlp)
 
     def forward(self, x, bias):
         eps = self.cfg.layernorm_eps
-        h = _rmsnorm(x, self.ln1, eps)
+        h = _rmsnorm(x, local(self.ln1), eps)
         x = x + self.attn(h, h, bias=bias)
-        return x + self._ffn(_rmsnorm(x, self.ln2, eps))
+        return x + self._ffn(_rmsnorm(x, local(self.ln2), eps))
 
 
 class DecoderBlock(EncoderBlock):
@@ -199,10 +225,10 @@ class DecoderBlock(EncoderBlock):
 
     def forward(self, x, enc_out, bias):
         eps = self.cfg.layernorm_eps
-        h = _rmsnorm(x, self.ln1, eps)
+        h = _rmsnorm(x, local(self.ln1), eps)
         x = x + self.attn(h, h, bias=bias, causal=True)
-        x = x + self.cross(_rmsnorm(x, self.ln3, eps), enc_out)
-        return x + self._ffn(_rmsnorm(x, self.ln2, eps))
+        x = x + self.cross(_rmsnorm(x, local(self.ln3), eps), enc_out)
+        return x + self._ffn(_rmsnorm(x, local(self.ln2), eps))
 
 
 class T5(nn.Module):
@@ -211,6 +237,13 @@ class T5(nn.Module):
     over from the JAX package)."""
 
     jax_stacks = {"encoder": "encoder", "decoder": "decoder"}
+    # On a mesh (sharding.shard_model): FSDP2's units, the layers of both
+    # stacks, and the entries besides forward that read the root's
+    # parameters.
+    fsdp_methods = ("encode", "decode")
+
+    def fsdp_units(self):
+        return (*self.encoder, *self.decoder)
 
     def __init__(self, cfg: T5Config, device: DeviceLike = None):
         super().__init__()
@@ -227,35 +260,56 @@ class T5(nn.Module):
         self.decoder = nn.ModuleList(DecoderBlock(cfg, dev)
                                      for _ in range(cfg.n_decoder_layers))
 
-    def forward(self, encoder_tokens, decoder_tokens):
-        """→ logits [B, Sd, vocab] in the compute dtype."""
-        return decode(self, encode(self, encoder_tokens), decoder_tokens)
+    def forward(self, encoder_tokens, decoder_tokens, whole: bool = True):
+        """→ logits [B, Sd, vocab] in the compute dtype; with
+        ``whole=False`` (logits, how the vocab is split over tp or None):
+        on a mesh this rank's block of the vocab."""
+        logits, vocab = self._decode(self._encode(encoder_tokens),
+                                     decoder_tokens)
+        return gather_tp(logits, vocab) if whole else (logits, vocab)
+
+    def encode(self, tokens):
+        """tokens [B, S] → encoder hidden [B, S, d]."""
+        return self._encode(tokens)
+
+    def decode(self, enc_out, decoder_tokens):
+        """enc_out [B, Se, d] + decoder_tokens [B, Sd] → logits [B, Sd,
+        V]."""
+        logits, vocab = self._decode(enc_out, decoder_tokens)
+        return gather_tp(logits, vocab)
+
+    def _encode(self, tokens):
+        cfg = self.cfg
+        x = embed(tokens, self.wte).to(cfg.dtype)
+        S = tokens.shape[1]
+        bias = _rel_bias(self.enc_rel_bias, S, S, True, cfg)
+        for block in self.encoder:
+            x = checkpointed(block, cfg.remat)(x, bias)
+        return _rmsnorm(x, local(self.enc_final_ln), cfg.layernorm_eps)
+
+    def _decode(self, enc_out, decoder_tokens):
+        cfg = self.cfg
+        dt = cfg.dtype
+        x = embed(decoder_tokens, self.wte).to(dt)
+        Sd = decoder_tokens.shape[1]
+        self_bias = _rel_bias(self.dec_rel_bias, Sd, Sd, False, cfg)
+        for block in self.decoder:
+            x = checkpointed(block, cfg.remat)(x, enc_out, self_bias)
+        x = _rmsnorm(x, local(self.dec_final_ln), cfg.layernorm_eps)
+        # Tied embedding head with T5's rescale.
+        x = x * as_dtype(cfg.d_model ** -0.5, dt)
+        wte, vocab = tp_local(self.wte)
+        return to_tp(x, vocab) @ wte.to(dt).T, vocab
 
 
 def encode(model: T5, tokens):
     """tokens [B, S] → encoder hidden [B, S, d]."""
-    cfg = model.cfg
-    x = F.embedding(tokens, model.wte).to(cfg.dtype)
-    S = tokens.shape[1]
-    bias = _rel_bias(model.enc_rel_bias, S, S, True, cfg)
-    for block in model.encoder:
-        x = checkpointed(block, cfg.remat)(x, bias)
-    return _rmsnorm(x, model.enc_final_ln, cfg.layernorm_eps)
+    return model.encode(tokens)
 
 
 def decode(model: T5, enc_out, decoder_tokens):
     """enc_out [B, Se, d] + decoder_tokens [B, Sd] → logits [B, Sd, V]."""
-    cfg = model.cfg
-    dt = cfg.dtype
-    x = F.embedding(decoder_tokens, model.wte).to(dt)
-    Sd = decoder_tokens.shape[1]
-    self_bias = _rel_bias(model.dec_rel_bias, Sd, Sd, False, cfg)
-    for block in model.decoder:
-        x = checkpointed(block, cfg.remat)(x, enc_out, self_bias)
-    x = _rmsnorm(x, model.dec_final_ln, cfg.layernorm_eps)
-    # Tied embedding head with T5's rescale.
-    x = x * as_dtype(cfg.d_model ** -0.5, dt)
-    return x @ model.wte.to(dt).T
+    return model.decode(enc_out, decoder_tokens)
 
 
 def forward(model: T5, encoder_tokens, decoder_tokens):
@@ -265,16 +319,12 @@ def forward(model: T5, encoder_tokens, decoder_tokens):
 def loss_fn(model: T5, encoder_tokens, decoder_tokens, targets, mask=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token cross-entropy (fp32) over ``mask`` → (loss, {"loss",
-    "accuracy"})."""
-    logits = model(encoder_tokens, decoder_tokens).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - tgt
-    mask = torch.ones_like(nll) if mask is None else mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    loss = (nll * mask).sum() / denom
-    acc = ((logits.detach().argmax(-1) == targets) * mask).sum() / denom
-    return loss, {"loss": loss.detach(), "accuracy": acc}
+    "accuracy"}). Where the current step splits the batch over data ranks
+    (``parallel.mesh.registered_mesh``), the inputs are this rank's rows,
+    the first value is this rank's share (its sum over the global count
+    of targets) and the metrics are the global batch's."""
+    logits, vocab = model(encoder_tokens, decoder_tokens, whole=False)
+    return masked_ce(logits, targets, mask, vocab)
 
 
 # -- parameters ---------------------------------------------------------
@@ -310,25 +360,39 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
     return rules.spec("batch", "sequence")
 
 
+def _build(cfg, device, mesh, rules) -> T5:
+    """:func:`build`, after the check that the rules keep the sequence
+    whole."""
+    if mesh is not None and rules is not None:
+        check_whole_sequence(rules)
+    return build(T5, param_specs, cfg, device, mesh, rules)
+
+
 def init(cfg: T5Config, generator: torch.Generator,
-         device: DeviceLike = None, mesh=None) -> T5:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> T5:
     """A model with the JAX package's init distributions (every weight and
     bias table N(0, 1/d_model); RMSNorm scales 1), drawn from
     ``generator``, which must live on ``device``. The draws differ from
-    ``jax.random``'s for the same seed."""
-    check_unplaced(mesh)
+    ``jax.random``'s for the same seed. With ``mesh`` the model is placed
+    there by :func:`param_specs` of ``rules`` (default
+    ``ShardingRules()``) and holds the same global values."""
     std = 1.0 / math.sqrt(cfg.d_model)
     normal = dict.fromkeys(("wte", "enc_rel_bias", "dec_rel_bias", "wq",
                             "wk", "wv", "wo", "wi_0", "wi_1", "wo_ff"), std)
-    return _draw(T5(cfg, device), generator, normal, lambda leaf: 1.0)
+    return draw(_build(cfg, device, mesh, rules), generator,
+                normal, lambda leaf: 1.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: T5Config,
-                    device: DeviceLike = None) -> T5:
+                    device: DeviceLike = None, mesh=None,
+                    rules: Optional[ShardingRules] = None) -> T5:
     """The port's model holding exactly the values of ``params``: the
     nested dict that ``ray_tpu.models.t5.init`` returns, with numpy leaves
-    and each stack's layers on a leading ``[L, ...]`` axis."""
-    return load_jax_params(T5(cfg, device), params)
+    and each stack's layers on a leading ``[L, ...]`` axis. With ``mesh``
+    the model is placed as :func:`init` places it."""
+    return load_jax_params(_build(cfg, device, mesh, rules),
+                           params)
 
 
 __all__ = ["Attention", "DecoderBlock", "EncoderBlock", "PRESETS", "T5",

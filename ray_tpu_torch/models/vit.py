@@ -8,25 +8,35 @@ pre-LayerNorm blocks in fp32, cast back; the attention scale applied in
 the compute dtype before the fp32 softmax; the tanh form of GELU;
 parameters kept in ``param_dtype`` and cast to ``cfg.dtype`` at use. With
 ``remat`` each block is checkpointed while gradients are recorded.
+
+On a mesh (:func:`init` or :func:`from_jax_params` with ``mesh``, placed
+by :func:`param_specs`) each block computes on its local ``tp`` blocks of
+the heads and the MLP's columns, and the classifier on its block of the
+classes, as ``models/gpt.py``'s blocks and head; :func:`loss_fn` takes
+the vocab-parallel cross-entropy over the classes and divides by the
+global batch where the current step splits it over the data ranks
+(``models/_common.py``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models._common import (as_dtype, check_unplaced,
-                                          check_unstacked, checkpointed)
+from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
+                                          checkpointed, draw, masked_ce)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
-from ray_tpu_torch.models.gpt import _draw, _empty, _layernorm
-from ray_tpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+from ray_tpu_torch.models.gpt import _empty, _layernorm
+from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
+                                             from_tp, gather_tp, local, to_tp,
+                                             tp_local)
 
 
 @dataclass(frozen=True)
@@ -113,23 +123,31 @@ class Block(nn.Module):
         self.b_out = _empty((d,), cfg, device)
 
     def forward(self, x):
+        """x: [B, S, d] → [B, S, d]; on a tp mesh the heads and the MLP
+        columns of this rank's blocks, the residual stream whole."""
         cfg = self.cfg
         dt = cfg.dtype
-        h = _layernorm(x, self.ln1_scale, self.ln1_bias, cfg.layernorm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, self.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", h, self.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", h, self.wv.to(dt))
+        h = _layernorm(x, local(self.ln1_scale), local(self.ln1_bias),
+                       cfg.layernorm_eps)
+        wq, heads = tp_local(self.wq)
+        h = to_tp(h, heads)
+        q = torch.einsum("bsd,dhk->bshk", h, wq.to(dt))
+        k = torch.einsum("bsd,dhk->bshk", h, local(self.wk).to(dt))
+        v = torch.einsum("bsd,dhk->bshk", h, local(self.wv).to(dt))
         scale = as_dtype(1.0 / math.sqrt(cfg.head_dim), dt)
         logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
         probs = torch.softmax(logits, dim=-1).to(dt)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, self.wo.to(dt))
+        x = x + from_tp(torch.einsum("bshk,hkd->bsd", attn,
+                                     local(self.wo).to(dt)), heads)
 
-        h = _layernorm(x, self.ln2_scale, self.ln2_bias, cfg.layernorm_eps)
-        ff = F.gelu(h @ self.w_in.to(dt) + self.b_in.to(dt),
+        h = _layernorm(x, local(self.ln2_scale), local(self.ln2_bias),
+                       cfg.layernorm_eps)
+        w_in, mlp = tp_local(self.w_in)
+        ff = F.gelu(to_tp(h, mlp) @ w_in.to(dt) + local(self.b_in).to(dt),
                     approximate="tanh")
-        ff = ff @ self.w_out.to(dt)
-        return x + ff + self.b_out.to(dt)
+        ff = from_tp(ff @ local(self.w_out).to(dt), mlp)
+        return x + ff + local(self.b_out).to(dt)
 
 
 class ViT(nn.Module):
@@ -138,6 +156,12 @@ class ViT(nn.Module):
     the JAX package)."""
 
     jax_stacks = {"layers": "blocks"}
+    # On a mesh (sharding.shard_model): FSDP2's units; forward is the
+    # only entry.
+    fsdp_methods = ()
+
+    def fsdp_units(self):
+        return tuple(self.blocks)
 
     def __init__(self, cfg: ViTConfig, device: DeviceLike = None):
         super().__init__()
@@ -156,22 +180,31 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, dev)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, images):
-        """images [B, H, W, C] float → logits [B, n_classes] (fp32)."""
+    def forward(self, images, whole: bool = True):
+        """images [B, H, W, C] float → logits [B, n_classes] (fp32); with
+        ``whole=False`` (logits, how the classes are split over tp or
+        None): on a mesh this rank's block of the classes."""
         cfg = self.cfg
         dt = cfg.dtype
         patches = patchify(cfg, images.to(dt))
-        x = patches @ self.patch_proj.to(dt) + self.patch_bias.to(dt)
+        x = patches @ local(self.patch_proj).to(dt) + \
+            local(self.patch_bias).to(dt)
         if cfg.pool == "cls":
-            cls = self.cls_token.to(dt).expand(x.shape[0], 1, cfg.d_model)
+            cls = local(self.cls_token).to(dt).expand(x.shape[0], 1,
+                                                      cfg.d_model)
             x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(dt)
+        x = x + local(self.pos_embed).to(dt)
         for block in self.blocks:
             x = checkpointed(block, cfg.remat)(x)
-        x = _layernorm(x, self.lnf_scale, self.lnf_bias, cfg.layernorm_eps)
+        x = _layernorm(x, local(self.lnf_scale), local(self.lnf_bias),
+                       cfg.layernorm_eps)
         pooled = x[:, 0] if cfg.pool == "cls" else x.mean(dim=1)
-        logits = pooled @ self.head_w.to(dt) + self.head_b.to(dt)
-        return logits.float()
+        head_w, classes = tp_local(self.head_w)
+        logits = (to_tp(pooled, classes) @ head_w.to(dt)
+                  + local(self.head_b).to(dt)).float()
+        if whole:
+            return gather_tp(logits, classes)
+        return logits, classes
 
 
 def patchify(cfg: ViTConfig, images):
@@ -192,13 +225,12 @@ def forward(model: ViT, images):
 def loss_fn(model: ViT, images, labels
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Softmax cross-entropy classification loss (fp32) → (loss,
-    {"loss", "accuracy"})."""
-    logits = model(images)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels[:, None].long())[:, 0]
-    loss = (logz - tgt).mean()
-    acc = (logits.detach().argmax(-1) == labels).float().mean()
-    return loss, {"loss": loss.detach(), "accuracy": acc}
+    {"loss", "accuracy"}). Where the current step splits the batch over
+    data ranks (``parallel.mesh.registered_mesh``), ``images`` and
+    ``labels`` are this rank's rows, the first value is this rank's share
+    of the global mean and the metrics are the global batch's."""
+    logits, classes = model(images, whole=False)
+    return masked_ce(logits, labels, None, classes)
 
 
 # -- parameters ---------------------------------------------------------
@@ -243,27 +275,33 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
 
 
 def init(cfg: ViTConfig, generator: torch.Generator,
-         device: DeviceLike = None, mesh=None) -> ViT:
+         device: DeviceLike = None, mesh=None,
+         rules: Optional[ShardingRules] = None) -> ViT:
     """A model with the JAX package's init distributions (std 0.02, the
     output projections 0.02/sqrt(2L); LayerNorm scales 1, biases 0),
     drawn from ``generator``, which must live on ``device``. The draws
-    differ from ``jax.random``'s for the same seed."""
-    check_unplaced(mesh)
+    differ from ``jax.random``'s for the same seed. With ``mesh`` the
+    model is placed there by :func:`param_specs` of ``rules`` (default
+    ``ShardingRules()``) and holds the same global values."""
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
     normal = {"patch_proj": std, "pos_embed": std, "head_w": std,
               "cls_token": std, "wq": std, "wk": std, "wv": std,
               "w_in": std, "wo": out_std, "w_out": out_std}
-    return _draw(ViT(cfg, device), generator, normal,
-                 lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
+    return draw(build(ViT, param_specs, cfg, device, mesh, rules),
+                generator, normal,
+                lambda leaf: 1.0 if leaf.endswith("_scale") else 0.0)
 
 
 def from_jax_params(params: Dict[str, Any], cfg: ViTConfig,
-                    device: DeviceLike = None) -> ViT:
+                    device: DeviceLike = None, mesh=None,
+                    rules: Optional[ShardingRules] = None) -> ViT:
     """The port's model holding exactly the values of ``params``: the
     nested dict that ``ray_tpu.models.vit.init`` returns, with numpy
-    leaves and layers stacked on a leading ``[L, ...]`` axis."""
-    return load_jax_params(ViT(cfg, device), params)
+    leaves and layers stacked on a leading ``[L, ...]`` axis. With
+    ``mesh`` the model is placed as :func:`init` places it."""
+    return load_jax_params(build(ViT, param_specs, cfg, device, mesh, rules),
+                           params)
 
 
 __all__ = ["Block", "PRESETS", "ViT", "ViTConfig", "batch_spec", "config",

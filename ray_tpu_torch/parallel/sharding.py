@@ -172,9 +172,10 @@ def check_mesh(mesh) -> None:
     ``AXIS_ORDER``'s, in that order."""
     from ray_tpu_torch.parallel.mesh import AXIS_ORDER
 
-    if tuple(mesh.mesh_dim_names or ()) != AXIS_ORDER:
-        raise ValueError(f"a mesh with axes {mesh.mesh_dim_names}; the port "
-                         f"places models on build_mesh's {AXIS_ORDER}")
+    names = getattr(mesh, "mesh_dim_names", None)
+    if tuple(names or ()) != AXIS_ORDER:
+        raise ValueError(f"a mesh with axes {names}; the port places models "
+                         f"on build_mesh's {AXIS_ORDER}")
 
 
 def placements(mesh, spec) -> list:
@@ -204,15 +205,16 @@ def shard_tree(tree, mesh, spec_tree):
 
 
 def _spec_by_name(model: nn.Module, specs: Dict[str, Any]):
-    """(name, spec) of each parameter: a root tensor's spec is
-    ``specs[name]``; ``blocks.{i}.{leaf}`` takes ``specs["layers"][leaf]``
-    (the JAX leaf's spec without its leading layers entry)."""
-    for name, _ in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            yield name, specs["layers"][parts[-1]]
-        else:
-            yield name, specs[name]
+    """(name, spec) of each parameter: the spec of its JAX leaf in
+    ``specs`` (the model's ``param_specs``, nested as the JAX tree), where
+    a layer of a stack (``blocks.{i}.wq``, T5's ``encoder.{i}.attn.wq``)
+    takes its stacked leaf's spec without the layer axis."""
+    from ray_tpu_torch.models._params import leaf_groups, lookup
+
+    for key, names in leaf_groups(model).items():
+        spec = lookup(specs, key)
+        for name in names:
+            yield name, spec
 
 
 _PARAM_AXES = ("tp", "fsdp", "ep")
@@ -221,7 +223,7 @@ _PARAM_AXES = ("tp", "fsdp", "ep")
 def _check_param_spec(name: str, shape, spec, sizes: Dict[str, int]):
     """{axis: the dim it shards, or None} for ``tp``, ``fsdp`` and ``ep``."""
     on = dict.fromkeys(_PARAM_AXES)
-    if len(spec) != len(shape):
+    if len(spec) > len(shape):
         raise ValueError(f"{name}: spec {spec} for a tensor of shape "
                          f"{tuple(shape)}")
     for d, entry in enumerate(spec):
@@ -246,17 +248,21 @@ def _check_param_spec(name: str, shape, spec, sizes: Dict[str, int]):
 
 
 def shard_model(model: nn.Module, mesh, specs: Dict[str, Any]) -> nn.Module:
-    """Place ``model`` (whose layers are its ``blocks``) on ``mesh`` by
-    ``specs`` (its module's ``param_specs``), in place: DTensor over
-    ``tp`` (and over ``ep`` for a tensor with an expert dim), then
-    ``fully_shard`` over ``(dp, fsdp)`` per block and on the root, which
-    averages the gradients over the data ranks. A parameter with no dim
-    on ``fsdp`` while ``fsdp > 1`` (a bias under ``fsdp_rules``) stays out
-    of FSDP2, replicated over the data axes, and
-    :func:`average_replicated_grads` averages its gradient alike. Every
-    parameter is replicated over ``sp`` and ``pp``. On a model on the
-    meta device nothing is allocated; fill it after ``to_empty``.
-    Returns ``model``."""
+    """Place ``model`` on ``mesh`` by ``specs`` (its module's
+    ``param_specs``; a spec shorter than its tensor leaves the last dims
+    whole, as JAX's), in place: DTensor over ``tp`` (and over ``ep`` for a
+    tensor with an expert dim), then ``fully_shard`` over ``(dp, fsdp)``
+    on each of the model's ``fsdp_units()`` (its layers) and on the root,
+    which averages the gradients over the data ranks. A parameter with no
+    dim on ``fsdp`` while ``fsdp > 1`` (a bias under ``fsdp_rules``, every
+    weight of the UNet) stays out of FSDP2, replicated over the data axes,
+    and :func:`average_replicated_grads` averages its gradient alike.
+    Every parameter is replicated over ``sp`` and ``pp``. The methods the
+    model names in ``fsdp_methods`` (entry points other than ``forward``
+    that read the root's parameters, such as GPT's ``hidden_states`` or
+    T5's ``encode``) gather the root's parameters as ``forward`` does. On
+    a model on the meta device nothing is allocated; fill it after
+    ``to_empty``. Returns ``model``."""
     from torch.distributed.fsdp import (fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -295,12 +301,11 @@ def shard_model(model: nn.Module, mesh, specs: Dict[str, Any]) -> nn.Module:
         return Shard(fsdp_dim[id(param)])
 
     data_mesh = mesh["dp", "fsdp"]
-    for module in (*model.blocks, model):
+    for module in (*model.fsdp_units(), model):
         fully_shard(module, mesh=data_mesh, shard_placement_fn=placement,
                     ignored_params=ignored)
-    if hasattr(model, "hidden_states"):
-        # loss_fn enters the model here, not through forward.
-        register_fsdp_forward_method(model, "hidden_states")
+    for method in model.fsdp_methods:
+        register_fsdp_forward_method(model, method)
     return model
 
 

@@ -3,10 +3,12 @@
 The rank-level half of ``ray_tpu/air/session.py``'s ``report_sharded``,
 and the restore that places the blocks again. The port's state is
 ``{"params": model, "opt_state": state, "step": tensor}`` (``parallel.
-train_step.init_train_state``'s, or a Llama's built alike); on disk it is
+train_step.init_train_state``'s, or one built alike for any model of
+``ray_tpu_torch.models``: Llama, the UNet, ViT, BERT, T5); on disk it is
 the JAX package's ``{"params", "opt_state", "step"}`` tree: parameters
 nested as ``to_jax_params`` nests them, layers stacked on a leading
-``[L, ...]`` axis, the optimizer's state in optax's layout
+``[L, ...]`` axis (each of T5's two stacks), the optimizer's state in
+optax's layout
 (``parallel.optim.to_optax_state``), and the step an int32 scalar. So a
 run either package saved, the other resumes.
 
@@ -42,6 +44,8 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch._private import builtin_metrics, spill
+from ray_tpu_torch.models._params import (jax_specs, leaf_groups,
+                                          specs_by_leaf, stacked)
 from ray_tpu_torch.parallel import optim
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_sizes
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
@@ -58,9 +62,16 @@ _UNSHARDED = ShardingRules(batch=None, embed=None, heads=None, kv_heads=None,
 
 
 def _model_module(model):
-    """``models.llama`` for a Llama, else ``models.gpt``."""
-    from ray_tpu_torch.models import gpt, llama
-    return llama if isinstance(model, llama.Llama) else gpt
+    """The module of ``ray_tpu_torch.models`` that defines ``model``'s
+    class (``gpt`` for a GPT, ``t5`` for a T5, ...)."""
+    from ray_tpu_torch.models import bert, diffusion, gpt, llama, t5, vit
+    for module, cls in ((gpt, gpt.GPT), (llama, llama.Llama),
+                        (diffusion, diffusion.UNet), (vit, vit.ViT),
+                        (bert, bert.Bert), (t5, t5.T5)):
+        if isinstance(model, cls):
+            return module
+    raise TypeError(f"a train state of {type(model).__name__}: the port "
+                    f"saves GPT, Llama, UNet, ViT, Bert and T5 models")
 
 
 def _rank_world() -> Tuple[int, int]:
@@ -86,23 +97,18 @@ def _axes(mesh) -> List[Tuple[str, int]]:
 
 def _specs(model, mesh, rules):
     """(the JAX package's nested spec tree of the model's parameters, each
-    ``leaf_groups`` key's spec): a layer leaf's spec has the layer axis's
-    None first; without a mesh nothing is sharded."""
+    ``leaf_groups`` key's spec): a stacked leaf's spec has the layer
+    axis's None first; without a mesh nothing is sharded."""
     rules = (rules or ShardingRules()) if mesh is not None else _UNSHARDED
-    tree = _model_module(model).param_specs(model.cfg, rules)
-    tree["layers"] = {leaf: PartitionSpec(None, *spec)
-                      for leaf, spec in tree["layers"].items()}
-    by_key = {k: v for k, v in tree.items() if k != "layers"}
-    by_key.update((f"layers.{leaf}", spec)
-                  for leaf, spec in tree["layers"].items())
-    return tree, by_key
+    specs = _model_module(model).param_specs(model.cfg, rules)
+    return jax_specs(model, specs), specs_by_leaf(model, specs)
 
 
 def _trees(state, mesh, rules, device):
     """(the state's blocks in the JAX layout on ``device``, their specs in
     the same structure)."""
     model = state["params"]
-    groups = _model_module(model).leaf_groups(model)
+    groups = leaf_groups(model)
     param_specs, specs = _specs(model, mesh, rules)
     blocks = {"params": optim.to_jax_tree(
                   {n: local(p) for n, p in model.named_parameters()},
@@ -122,11 +128,12 @@ def _check_blocks(flat, specs, axes, rank, model) -> Dict[str, Tuple]:
     int32, or a block that is not ``shard_slices``' block of it (a padded
     shard must never reach the file)."""
     sizes, coords = dict(axes), sc.rank_coords(rank, axes)
-    params = {}
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        params[name if parts[0] != "blocks" else f"layers/{parts[-1]}"] = \
-            tuple(p.shape)
+    named = dict(model.named_parameters())
+    params = {}  # each JAX leaf's whole shape, by its path in the tree
+    for key, names in leaf_groups(model).items():
+        shape = tuple(named[names[0]].shape)
+        params[key.replace(".", "/")] = ((len(names),) + shape
+                                         if stacked(key, names) else shape)
     shapes = {}
     for path, block in flat.items():
         if block.dtype not in SAVED_DTYPES:
@@ -137,10 +144,7 @@ def _check_blocks(flat, specs, axes, rank, model) -> Dict[str, Tuple]:
                       for n, axes_d in zip(block.shape, spec))
         leaf = path.partition("/")[2]
         if path.startswith("params/") and leaf in params:
-            whole = params[leaf]
-            if leaf.startswith("layers/"):
-                whole = (shape[0],) + whole
-            shape = whole
+            shape = params[leaf]
         want = tuple(s.stop - s.start
                      for s in shard_slices(shape, spec, sizes, coords))
         if tuple(block.shape) != want:
@@ -293,7 +297,7 @@ def restore_train_state(state: Dict[str, Any], checkpoint, mesh=None,
         tree = sc.unflatten_tree(structure, {p: t.to_local()
                                              for p, t in flat.items()})
     model = state["params"]
-    groups = _model_module(model).leaf_groups(model)
+    groups = leaf_groups(model)
     optim.from_jax_tree(tree["params"],
                         {n: local(p) for n, p in model.named_parameters()},
                         groups)

@@ -273,13 +273,13 @@ def _optimizer(name):
 
 def _local_tree(state):
     """This rank's blocks of the state in the JAX layout, by path."""
-    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models._params import leaf_groups
     from ray_tpu_torch.parallel import optim
     from ray_tpu_torch.parallel.sharding import local
     from ray_tpu_torch.train._internal import sharded_checkpoint as sc
 
     model = state["params"]
-    groups = gpt.leaf_groups(model)
+    groups = leaf_groups(model)
     tree = {"params": optim.to_jax_tree(
                 {n: local(p) for n, p in model.named_parameters()}, groups,
                 "cpu"),
@@ -479,8 +479,263 @@ def moe_layer(mesh_cfg, rules_name, overrides, params0, h):
             "aux": float(aux)}
 
 
+# -- the model zoo ------------------------------------------------------
+# A zoo model's case names its module ("vit", "bert", "t5", "diffusion")
+# and its rules (a preset's name, or ShardingRules' fields as a dict); the
+# batch is a tuple of numpy arrays, the global batch, of which each rank
+# takes its rows over the rules' batch axes.
+
+def _zoo(name):
+    from ray_tpu_torch.models import bert, diffusion, t5, vit
+    return {"vit": vit, "bert": bert, "t5": t5, "diffusion": diffusion}[name]
+
+
+def _zoo_rules(rules):
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    return _rules(rules) if isinstance(rules, str) else ShardingRules(**rules)
+
+
+def _zoo_rows(mesh, rules, arrays):
+    """This rank's rows of each array (of the global batch), as tensors,
+    and (start, stop) of them."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import mesh_sizes
+    from ray_tpu_torch.parallel.sharding import PartitionSpec, shard_slices
+    rows = shard_slices((arrays[0].shape[0],), PartitionSpec(rules.batch),
+                        mesh_sizes(mesh), _coords(mesh))[0]
+    return ([torch.from_numpy(np.ascontiguousarray(a[rows])) for a in arrays],
+            (rows.start, rows.stop))
+
+
+def _zoo_forward_fn(name):
+    """The model's forward on the inputs of its test: logits (the UNet's
+    predicted noise)."""
+    m = _zoo(name)
+    return {"vit": lambda model, images: m.forward(model, images),
+            "bert": lambda model, tokens, attn: m.mlm_logits(
+                model, tokens, attention_mask=attn),
+            "t5": lambda model, enc, dec: m.forward(model, enc, dec),
+            "diffusion": lambda model, x, t: m.forward(model, x, t)}[name]
+
+
+def _zoo_loss(name, model, batch, seed):
+    """This rank's share of the loss of its rows of the batch; the UNet
+    draws t and eps from a generator seeded with ``seed``."""
+    import torch
+    m = _zoo(name)
+    if name == "bert":
+        return m.mlm_loss(model, *batch)
+    if name == "diffusion":
+        return m.loss_fn(model, batch[0],
+                         torch.Generator().manual_seed(seed))[0]
+    return m.loss_fn(model, *batch)[0]
+
+
+def _zoo_step(name, mesh, rules, model, opt, opt_state, batch, seed):
+    """One step on the mesh, as a user composes it: the loss in
+    registered_mesh, backward (FSDP2 averages over the data ranks, so the
+    share is scaled by the count of batch blocks), the replicated
+    parameters' gradients averaged, AdamW's update → (opt_state, the
+    global loss, this rank's gradient blocks, the gradients' global
+    norm)."""
+    import torch
+
+    from ray_tpu_torch.models import _common
+    from ray_tpu_torch.parallel import optim
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+    from ray_tpu_torch.parallel.sharding import (average_replicated_grads,
+                                                 local)
+    params = dict(model.named_parameters())
+    with registered_mesh(mesh, rules):
+        share = _zoo_loss(name, model, batch, seed)
+        (share * _common.batch_blocks()).backward()
+        loss = _common.batch_sum(share.detach(), [
+            g.group for g in _common.batch_groups()])
+    average_replicated_grads(params.values())
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in params.items()}
+    blocks = {n: local(g).detach().numpy().copy() for n, g in grads.items()}
+    # The global norm as optim's clip takes it: each rank's sums of
+    # squares, each block counted once over the copies of its mesh.
+    norm = float(optim._global_sums(
+        [local(g).float().pow(2).sum() for g in grads.values()],
+        list(grads.values())).sum().sqrt())
+    for p in params.values():
+        p.grad = None
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        optim.apply_updates(params, updates)
+    return opt_state, float(loss), blocks, norm
+
+
+def _zoo_adamw(lr):
+    import torch
+
+    from ray_tpu_torch.parallel import optim
+    return optim.adamw(lambda count: torch.tensor(lr, dtype=torch.float32),
+                       weight_decay=0.0)
+
+
+def zoo_forward(name, preset, mesh_cfg, rules, params0, inputs):
+    """The zoo model placed by from_jax_params on the mesh: the forward
+    of this rank's rows of ``inputs``, and this rank's parameter blocks."""
+    import torch
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    m = _zoo(name)
+    model = m.from_jax_params(params0, m.config(preset), "cpu", mesh=mesh,
+                              rules=rules)
+    xs, rows = _zoo_rows(mesh, rules, inputs)
+    with torch.no_grad():
+        out = _zoo_forward_fn(name)(model, *xs)
+    model.reshard()  # with no backward to follow, the root stays gathered
+    return {"coords": _coords(mesh), "rows": rows, "out": out.numpy(),
+            "params": _locals(model)}
+
+
+def zoo_train(name, preset, mesh_cfg, rules, params0, batches, lr, seed):
+    """AdamW (weight decay 0) steps of the zoo model on the mesh, one per
+    batch: the first step's gradient blocks, each step's global loss and
+    gradient norm, and this rank's parameter blocks after the steps."""
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    m = _zoo(name)
+    model = m.from_jax_params(params0, m.config(preset), "cpu", mesh=mesh,
+                              rules=rules)
+    opt = _zoo_adamw(lr)
+    opt_state = opt.init(dict(model.named_parameters()), m.leaf_groups(model))
+    losses, grads, norms = [], None, []
+    for i, batch in enumerate(batches):
+        xs, rows = _zoo_rows(mesh, rules, batch)
+        opt_state, loss, g, norm = _zoo_step(name, mesh, rules, model, opt,
+                                             opt_state, xs, seed + i)
+        losses.append(loss)
+        norms.append(norm)
+        grads = grads or g
+    return {"coords": _coords(mesh), "rows": rows, "losses": losses,
+            "grads": grads, "norms": norms, "after": _locals(model)}
+
+
+def zoo_seeded_init(name, preset, mesh_cfg, rules, seed):
+    """init on the mesh from a seed against init on no mesh from the same
+    seed: every rank's block of every tensor must be that block of the
+    one-device weights; returns the names checked."""
+    import torch
+
+    from ray_tpu_torch.parallel.sharding import local, local_block
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    m = _zoo(name)
+    cfg = m.config(preset)
+    placed = m.init(cfg, torch.Generator().manual_seed(seed), "cpu",
+                    mesh=mesh, rules=rules)
+    whole = dict(m.init(cfg, torch.Generator().manual_seed(seed),
+                        "cpu").named_parameters())
+    names = []
+    for n, p in placed.named_parameters():
+        if not torch.equal(local(p), local_block(whole[n].detach(), p)):
+            raise AssertionError(f"{n}: this rank's block differs")
+        names.append(n)
+    return names
+
+
+def _zoo_state(name, preset, mesh, rules, lr, params0=None, seed=0):
+    import torch
+    m = _zoo(name)
+    cfg = m.config(preset)
+    model = (m.init(cfg, torch.Generator().manual_seed(seed), "cpu",
+                    mesh=mesh, rules=rules) if params0 is None
+             else m.from_jax_params(params0, cfg, "cpu", mesh=mesh,
+                                    rules=rules))
+    opt = _zoo_adamw(lr)
+    return {"params": model,
+            "opt_state": opt.init(dict(model.named_parameters()),
+                                  m.leaf_groups(model)),
+            "step": torch.zeros((), dtype=torch.int32)}, opt
+
+
+def zoo_ckpt_save(name, preset, mesh_cfg, rules, params0, batches, lr,
+                  storage):
+    """The zoo model from ``params0`` on the mesh, AdamW steps over
+    ``batches``, then save_train_state into ``storage``: the manifest's
+    URI and this rank's blocks as saved."""
+    import torch
+
+    from ray_tpu_torch.train import CheckpointManager, save_train_state
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    state, opt = _zoo_state(name, preset, mesh, rules, lr, params0)
+    for i, batch in enumerate(batches):
+        xs, _ = _zoo_rows(mesh, rules, batch)
+        state["opt_state"], _, _, _ = _zoo_step(
+            name, mesh, rules, state["params"], opt, state["opt_state"], xs,
+            i)
+        state["step"] = state["step"] + 1
+    manager = (CheckpointManager(storage, "zoo")
+               if torch.distributed.get_rank() == 0 else None)
+    handle = save_train_state(state, manager, mesh, rules)
+    return {"coords": _coords(mesh), "uri": handle.uri,
+            "blocks": _local_tree(state)}
+
+
+def zoo_ckpt_restore(name, preset, mesh_cfg, rules, lr, uri, batch, seed):
+    """A state of another seed on the mesh, restore_train_state from
+    ``uri``, then one step: the route, this rank's blocks after the
+    restore, the step's loss and the parameters' blocks after it."""
+    from ray_tpu_torch.train import ShardedCheckpoint, restore_train_state
+    from ray_tpu_torch.train.torch.checkpoint import restore_route
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    state, opt = _zoo_state(name, preset, mesh, rules, lr, seed=7)
+    ckpt = ShardedCheckpoint.from_manifest_uri(uri)
+    route = restore_route(ckpt, state, mesh, rules)
+    state = restore_train_state(state, ckpt, mesh, rules)
+    blocks = _local_tree(state)
+    xs, _ = _zoo_rows(mesh, rules, batch)
+    _, loss, _, _ = _zoo_step(name, mesh, rules, state["params"], opt,
+                              state["opt_state"], xs, seed)
+    return {"coords": _coords(mesh), "route": route, "blocks": blocks,
+            "loss": loss, "after": _locals(state["params"]),
+            "step": int(state["step"])}
+
+
+def zoo_errors(mesh_cfg):
+    """The messages of the zoo's limits on the mesh: vit-tiny with its 10
+    classes over tp, BERT and T5 with the sequence over sp, ViT with the
+    layer axis over pp."""
+    import torch
+
+    from ray_tpu_torch.models import bert, t5, vit
+    from ray_tpu_torch.parallel.sharding import (ShardingRules,
+                                                 context_parallel_rules)
+    mesh = _mesh(mesh_cfg)
+    out = {}
+    for key, fn, exc in (
+            ("classes", lambda: vit.init(vit.config("vit-tiny"),
+                                         torch.Generator(), "cpu", mesh=mesh,
+                                         rules=ShardingRules(embed=None)),
+             ValueError),
+            ("bert_sp", lambda: bert.init(bert.config("bert-tiny"),
+                                          torch.Generator(), "cpu",
+                                          mesh=mesh,
+                                          rules=context_parallel_rules()),
+             NotImplementedError),
+            ("t5_sp", lambda: t5.init(t5.config("t5-tiny"),
+                                      torch.Generator(), "cpu", mesh=mesh,
+                                      rules=context_parallel_rules()),
+             NotImplementedError),
+            ("layers", lambda: vit.init(vit.config("vit-tiny"),
+                                        torch.Generator(), "cpu", mesh=mesh,
+                                        rules=ShardingRules(layers="pp")),
+             NotImplementedError)):
+        try:
+            fn()
+            out[key] = None
+        except exc as e:
+            out[key] = str(e)
+    return out
+
+
 CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
                                   llama_forward, tree_blocks, ckpt_save,
                                   ckpt_restore, dcp_round_trip, ring_whole,
                                   ulysses_whole, pipeline_run,
-                                  pipeline_errors, moe_layer)}
+                                  pipeline_errors, moe_layer, zoo_forward,
+                                  zoo_train, zoo_seeded_init, zoo_ckpt_save,
+                                  zoo_ckpt_restore, zoo_errors)}

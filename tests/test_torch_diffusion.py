@@ -310,5 +310,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_placing_on_a_mesh_waits_for_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # A mesh is placed on (ROADMAP item 13 is done); one that is not
+    # build_mesh's raises.
+    with pytest.raises(ValueError, match="build_mesh"):
         td.init(td.config(PRESET), torch.Generator(), "cpu", mesh=object())

@@ -203,7 +203,9 @@ def test_pipeline_rules_and_a_mesh_wait_for_later_items():
     with pytest.raises(NotImplementedError, match="item 12"):
         tv.param_specs(tv.config(PRESET), tsharding.ShardingRules(
             layers="pp"))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # A mesh is placed on (ROADMAP item 13 is done); one that is not
+    # build_mesh's raises.
+    with pytest.raises(ValueError, match="build_mesh"):
         tv.init(tv.config(PRESET), torch.Generator(), "cpu", mesh=object())
 
 
