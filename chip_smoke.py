@@ -16,11 +16,12 @@ printed:
    must neither spill nor serialize.
 3. Kernel check: K1 (flash attention forward) against its plain PyTorch
    version on the card, at an fp32 GQA shape, gpt-1.3b's serving and
-   training shapes, llama3-8b's (32 query heads over 8 KV heads) and
-   gpt-moe-8x410m's (16 heads of 64), and in fp32 at head dim 64 and S
-   1024; then K2 and K3 (the backward: dq, and dk/dv) against theirs, at
-   an fp32 GQA shape, at the three models' training shapes and in fp32 at
-   head dim 64. Times of each kernel (per
+   training shapes, llama3-8b's (32 query heads over 8 KV heads),
+   gpt-moe-8x410m's (16 heads of 64) and gpt-410m's training shape (18 x
+   1024, 16 heads of 64), and in fp32 at head dim 64 and S 1024; then K2
+   and K3 (the backward: dq, and dk/dv) against theirs, at an fp32 GQA
+   shape, at the four models' training shapes and in fp32 at head dim
+   64. Times of each kernel (per
    call through its wrapper, and per launch in a stream of launches,
    which hides the host's share), its plain version and PyTorch's
    ``scaled_dot_product_attention`` forward or backward (a yardstick only,
@@ -118,10 +119,27 @@ printed:
    5h's. Then t5-base's state is saved and resumed by both routes, each
    resumed step bit-equal to the uninterrupted one (save and restore
    seconds printed; the directory deleted).
+   3b (after phase 3): the lookups as the JAX package's ``jnp.take`` and
+   ``jnp.take_along_axis`` take them, on the card at bert-base's
+   (30522 x 768) and gpt-410m's (50304 x 1024) tables: ids and targets -1,
+   V and -V-1 read the wrapped row or logit bit for bit and NaN out of
+   range, the gradient lands on the wrapped rows only, and no
+   device-side assert fires. 5j (after 5e): gpt-410m at full width and
+   depth with the JAX package's recipe for it (batch 18 x 1024, flash,
+   selective remat, loss_chunk 6144, default_optimizer(1e-4)): the first
+   gradients of full and selective remat from one state (step-0 loss
+   bit-equal, global norm within 1e-5); then full remat, selective remat,
+   and selective remat on the 1-rank mesh under the all-None rules and
+   under ``tp_fsdp_rules()``, 2 warm-up and 4 timed steps each from seed
+   0: (48, 24, 24) launches a step under full remat, (24, 24, 24) under
+   selective, the mesh runs' step-0 loss bit-equal to the selective
+   step's without a mesh and later losses within 1e-5; ms per step,
+   tokens/s, MFU and peak memory of each.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
-   llama3-8b's under "llama3_8b" and gpt-moe-8x410m's under
-   "gpt_moe_8x410m"); the last line is the result.
+   llama3-8b's under "llama3_8b", gpt-moe-8x410m's under
+   "gpt_moe_8x410m" and gpt-410m's training shape under "gpt_410m"); the
+   last line is the result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` runs phase 3 alone for the
 ``ray_tpu_torch`` of the checkout at ROOT (its kernels build under
@@ -255,6 +273,30 @@ MESH_LOGITS_TOL = 0.0625
 MESH_LOSS_RTOL = 1e-5
 # 5e: steps before the save, and after it (the reference, and each resume).
 CKPT_STEPS = 2
+# Phase 5j: gpt-410m (ray_tpu/models/gpt.py:118-120: 24 layers, d_model
+# 1024, 16 heads of 64, d_ff 4096, vocab 50304) at the JAX package's own
+# recipe for it (bench.py:2473-2478): batch 18 x 1024, flash attention,
+# selective remat, loss_chunk 6144, default_optimizer(1e-4) (AdamW after a
+# global-norm clip). Nothing cut.
+SEL_PRESET = "gpt-410m"
+SEL_BATCH, SEL_SEQ = 18, 1024
+SEL_OVERRIDES = dict(attn_impl="flash", remat=True,
+                     remat_policy="selective", loss_chunk=6144)
+SEL_WARMUP, SEL_STEPS = 2, 4
+# Step-0 loss of random logits, as LOSS0: a logit of the N(0, 0.02^2) head
+# over a unit-variance hidden has std 0.02 * sqrt(1024) = 0.64, so the
+# cross-entropy of a random target is ln(50304) + 0.64^2 / 2 = 11.03.
+SEL_LOSS0, SEL_LOSS0_TOL = 11.03, 0.3
+# The first gradients' global norm, selective against full remat from one
+# state: the same forward, and a backward that reads kept values where the
+# other recomputes them; the products and sums are the same, so they are
+# expected equal, and 1e-5 (MESH_LOSS_RTOL's fp32 summation order) bounds
+# a change in the order of a sum. A lost or doubled gradient moves it by
+# O(1).
+SEL_GRAD_RTOL = 1e-5
+# The lookup phase: the embedding tables of bert-base (30522 x 768) and
+# gpt-410m (50304 x 1024).
+LOOKUP_TABLES = (("bert-base", 30522, 768), ("gpt-410m", 50304, 1024))
 # gpt-moe-8x410m (ray_tpu/models/gpt.py: 24 layers, d_model 1024, 16 heads
 # of 64, d_ff 4096, 8 experts, top-2, capacity factor 1.25, vocab 50304):
 # K1-K3 at head dim 64. Served as gpt-1.3b is (4d) and trained with
@@ -641,6 +683,12 @@ def phase_kernel_check(torch):
     row["gpt_moe_8x410m"]["training"] = _k1_times(torch, fa, q, k, v, dname)
     _check_kernel(torch, fa, 2, SEQ, MOE_HEADS, MOE_HEADS, MOE_HEAD_DIM,
                   torch.float32, True, 512, 10)
+    # (i) gpt-410m's training shape (phase 5j): 18 x 1024, 16 heads of 64.
+    q, k, v, err, _ = _check_kernel(torch, fa, SEL_BATCH, SEL_SEQ, MOE_HEADS,
+                                    MOE_HEADS, MOE_HEAD_DIM, torch.bfloat16,
+                                    True, 512, 13)
+    row["gpt_410m"] = {"max_abs_err": err,
+                       "training": _k1_times(torch, fa, q, k, v, dname)}
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -757,6 +805,10 @@ def phase_backward_check(torch):
         MOE_HEAD_DIM, 512, 11)
     _check_backward(torch, fa, 2, TRAIN_SEQ, MOE_HEADS, MOE_HEADS,
                     MOE_HEAD_DIM, torch.float32, True, 512, 12)
+    # gpt-410m's training shape (phase 5j).
+    k2["gpt_410m"], k3["gpt_410m"] = _bwd_times(
+        torch, fa, SEL_BATCH, SEL_SEQ, MOE_HEADS, MOE_HEADS, MOE_HEAD_DIM,
+        512, 14)
     return k2, k3
 
 
@@ -1528,6 +1580,204 @@ def phase_mesh_training(torch, mesh, ref):
         del state, model, step, metrics
         gc.collect()
         torch.cuda.empty_cache()
+    return tuple(total)
+
+
+def phase_lookups(torch):
+    """The lookups on the card as the JAX package's ``jnp.take`` and
+    ``jnp.take_along_axis`` take them, at bert-base's and gpt-410m's
+    tables: ids and targets -1, V and -V-1 (and 0, V-1) read the wrapped
+    row or logit bit for bit, NaN out of range, the embedding's gradient
+    only on the rows the ids in range read; every index is clamped before
+    a gather, so no device-side assert fires (which would end the CUDA
+    context: the synchronize surfaces one)."""
+    from ray_tpu_torch.models import _common, bert
+
+    for name, V, d in LOOKUP_TABLES:
+        g = torch.Generator(DEVICE).manual_seed(7)
+        table = torch.randn((V, d), generator=g, device=DEVICE,
+                            requires_grad=True)
+        ids = torch.tensor([[-1, V, -V - 1, 0, V - 1]], device=DEVICE)
+        rows = _common.embed(ids, table)
+        ct = torch.randn(rows.shape, generator=g, device=DEVICE)
+        rows.backward(ct)
+        segs = bert._segment_rows(torch.tensor([[-1, 2, -3, 0, 1]],
+                                               device=DEVICE), table[:2])
+        logits = torch.randn((5, V), generator=g, device=DEVICE,
+                             requires_grad=True)
+        nll = torch.stack([_common.ce_stats(
+            logits[i:i + 1], ids[0, i:i + 1],
+            torch.ones(1, device=DEVICE))[0] for i in range(5)])
+        hits = _common.ce_stats(logits, ids[0], torch.ones(5, device=DEVICE))
+        nll.sum().backward()
+        torch.cuda.synchronize()
+        t = table.detach()
+        check(torch.equal(rows[0, [0, 3, 4]], t[[V - 1, 0, V - 1]])
+              and bool(torch.isnan(rows[0, 1:3]).all()),
+              f"{name}: embed of ids -1, V, -V-1, 0, V-1")
+        want = torch.zeros_like(t)
+        want[V - 1] = ct[0, 0] + ct[0, 4]
+        want[0] = ct[0, 3]
+        check(torch.equal(table.grad, want),
+              f"{name}: the embedding's gradient is not on the wrapped "
+              f"rows alone")
+        check(torch.equal(segs[0, [0, 3, 4]], t[[1, 0, 1]])
+              and bool(torch.isnan(segs[0, 1:3]).all()),
+              f"{name}: segment rows of ids -1, 2, -3, 0, 1")
+        lg = logits.detach()
+        want_nll = torch.stack([
+            torch.logsumexp(lg[i:i + 1], -1)[0] - lg[i, t]
+            for i, t in ((0, V - 1), (3, 0), (4, V - 1))])
+        check(torch.equal(nll.detach()[[0, 3, 4]], want_nll)
+              and bool(torch.isnan(nll[1:3]).all()),
+              f"{name}: nll of targets -1, V, -V-1, 0, V-1")
+        # Rows 1-2 (targets out of range): logz's gradient alone, the
+        # softmax; a target added to a clamped logit would move one by 1.
+        check(bool(torch.isfinite(logits.grad).all())
+              and torch.allclose(logits.grad[1:3],
+                                 torch.softmax(lg[1:3], -1), rtol=1e-5,
+                                 atol=1e-12),
+              f"{name}: an out-of-range target added to a logit")
+        n_hits = int(float(hits[1]))
+        want_hits = int(lg.argmax(-1)[3] == 0) + int(lg.argmax(-1)[4]
+                                                      == V - 1)
+        check(n_hits == want_hits,
+              f"{name}: hits {n_hits}, expected {want_hits} (-1 never hits)")
+        print(f"lookups: {name} ({V} x {d}): ids -1, V, -V-1 read row V-1, "
+              f"NaN, NaN bit for bit; gradient on rows 0 and V-1 only; "
+              f"targets: nll of -1 is logz - logit[V-1], NaN for V and "
+              f"-V-1, no gradient into their logits beyond logz's; no "
+              f"device-side assert")
+        del table, logits, rows, nll, ct
+    torch.cuda.empty_cache()
+
+
+def _sel_run(torch, name, cfg, mesh, rules, batch):
+    """SEL_WARMUP + SEL_STEPS steps of gpt-410m's recipe from seed 0 →
+    (losses, step seconds, (K1, K2, K3) launches per step, their totals,
+    peak memory above what was held before the state, the state's GiB)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import train_step as ts
+
+    base = torch.cuda.memory_allocated()
+    opt = ts.default_optimizer(learning_rate=1e-4)
+    state = ts.init_train_state(cfg, mesh, rules, opt, seed=0,
+                                device=DEVICE)
+    step = ts.make_train_step(cfg, mesh, rules, opt)
+    torch.cuda.synchronize()
+    state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    if mesh is not None:
+        _check_placed(state["params"], name)
+    losses, step_s, per_step = [], [], []
+    _zero_counts(fa)
+    for i in range(SEL_WARMUP + SEL_STEPS):
+        if i == SEL_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(tuple(b - a for a, b in zip(counts0, _counts(fa))))
+        losses.append(float(metrics["loss"]))
+    counts = _counts(fa)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del state, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, step_s, per_step, counts, peak, state_gib
+
+
+def phase_selective_training(torch, mesh):
+    """gpt-410m's recipe (selective remat) through the port's train step:
+    the first gradients of both policies from one state; then full remat,
+    selective remat, and selective remat on prepare_mesh's 1-rank mesh
+    under the all-None rules and under tp_fsdp_rules(), 2 warm-up and 4
+    timed steps each from seed 0. Returns the (K1, K2, K3) launches."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import tp_fsdp_rules
+
+    cfg = gpt.config(SEL_PRESET, **SEL_OVERRIDES)
+    batch = _train_batch(torch, cfg, SEL_BATCH, SEL_SEQ, 0, DEVICE)
+    L = cfg.n_layers
+    print(f"selective: {SEL_PRESET} ({cfg.num_params() / 1e9:.3f} B params, "
+          f"{L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}), batch {SEL_BATCH} x {SEL_SEQ}, {SEL_OVERRIDES},"
+          f" default_optimizer(1e-4)")
+
+    # The first gradients of each policy from one state (init_train_state's
+    # weights for seed 0).
+    model = gpt.init(cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    params = list(model.parameters())
+    first = {}
+    for policy in ("full", "selective"):
+        model.cfg = replace(cfg, remat_policy=policy)
+        loss, _ = gpt.loss_fn(model, batch["tokens"], batch["targets"])
+        grads = torch.autograd.grad(loss, params)
+        norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads))
+        first[policy] = (float(loss.detach()), float(norm))
+        del loss, grads
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    (loss_f, norm_f), (loss_s, norm_s) = first["full"], first["selective"]
+    check(loss_s == loss_f, f"step-0 loss: selective {loss_s!r}, full "
+          f"{loss_f!r} (the same forward)")
+    check(abs(norm_s / norm_f - 1) <= SEL_GRAD_RTOL,
+          f"first gradients' norm: selective {norm_s!r}, full {norm_f!r}")
+    check(abs(loss_s - SEL_LOSS0) <= SEL_LOSS0_TOL,
+          f"step-0 loss {loss_s} is not within {SEL_LOSS0_TOL} of "
+          f"{SEL_LOSS0}")
+    print(f"selective: from one state, step-0 loss {loss_s!r} under both "
+          f"policies; first gradients' norm selective {norm_s!r}, full "
+          f"{norm_f!r} (rel {abs(norm_s / norm_f - 1):.3e}, bound "
+          f"{SEL_GRAD_RTOL:.0e})")
+
+    runs = [("full remat", replace(cfg, remat_policy="full"), None, None,
+             (2 * L, L, L)),
+            ("selective", cfg, None, None, (L, L, L)),
+            ("selective, mesh, rules all None (bench.py)", cfg, mesh,
+             _all_rules(), (L, L, L)),
+            ("selective, mesh, tp_fsdp_rules()", cfg, mesh, tp_fsdp_rules(),
+             (L, L, L))]
+    total, out = [0, 0, 0], {}
+    for name, run_cfg, run_mesh, rules, per_layer in runs:
+        losses, step_s, per_step, counts, peak, state_gib = _sel_run(
+            torch, name, run_cfg, run_mesh, rules, batch)
+        total = [t + c for t, c in zip(total, counts)]
+        check(all(c == per_layer for c in per_step),
+              f"{name}: launches per step (K1, K2, K3) {per_step}, "
+              f"expected {per_layer}")
+        check(np.isfinite(losses).all(), f"{name}: losses {losses}")
+        timed = step_s[SEL_WARMUP:]
+        mean_s = statistics.mean(timed)
+        tokens_s = SEL_BATCH * SEL_SEQ / mean_s
+        mfu = tokens_s * gpt.flops_per_token(cfg) / PEAK_FLOPS["bfloat16"]
+        out[name] = (losses, mean_s, peak)
+        print(f"selective: {name}: losses {losses}; {SEL_STEPS} timed steps "
+              f"{[round(t * 1e3, 2) for t in timed]} ms, mean "
+              f"{mean_s * 1e3:.2f} ms/step (std "
+              f"{statistics.pstdev(timed) * 1e3:.2f}), {tokens_s:.1f} "
+              f"tokens/s, MFU {mfu:.2%} of the 989 TFLOP/s bf16 peak; peak "
+              f"memory {peak:.2f} GiB above what was held before the state "
+              f"({state_gib:.2f} GiB of state); launches (K1, K2, K3) "
+              f"{counts} = {per_layer} per step")
+    full, sel = out["full remat"][0], out["selective"][0]
+    check(sel[0] == full[0], f"step-0 loss: selective {sel[0]!r}, full "
+          f"{full[0]!r}")
+    for name, _, run_mesh, _, _ in runs[2:]:
+        losses = out[name][0]
+        rel = [abs(a / b - 1) for a, b in zip(losses, sel)]
+        check(losses[0] == sel[0] and max(rel) <= MESH_LOSS_RTOL,
+              f"{name}: losses {losses} against the selective step's "
+              f"without a mesh {sel}")
+        print(f"selective: {name}: step-0 loss bit-equal to the step "
+              f"without a mesh, max rel dloss {max(rel):.3e} (bound "
+              f"{MESH_LOSS_RTOL:.0e}); ms/step {out[name][1] * 1e3:.2f} "
+              f"(without a mesh {out['selective'][1] * 1e3:.2f}, full remat "
+              f"{out['full remat'][1] * 1e3:.2f})")
     return tuple(total)
 
 
@@ -2693,6 +2943,7 @@ def _main_phases(torch):
     _timed("2", phase_build)
     k1 = _timed("3 (K1)", phase_kernel_check, torch)
     k2, k3 = _timed("3 (K2, K3)", phase_backward_check, torch)
+    _timed("3b (lookups)", phase_lookups, torch)
     k1_serve, buf13 = _timed("4", phase_serving, torch)
     _timed("4 (gpt-micro)", phase_small_reference, torch)
     _timed("4 (gpt-moe-tiny)", phase_moe_small, torch)
@@ -2709,6 +2960,8 @@ def _main_phases(torch):
     k1_mesh, k2_mesh, k3_mesh = _timed("5d", phase_mesh_training, torch,
                                        mesh, ref)
     k1_ckpt, k2_ckpt, k3_ckpt = _timed("5e", phase_checkpoint, torch, mesh)
+    k1_sel, k2_sel, k3_sel = _timed("5j", phase_selective_training, torch,
+                                    mesh)
     _timed("5 (gpt-micro)", phase_small_training, torch)
     (k1_moe, k2_moe, k3_moe), moe_ref = _timed("5f", phase_moe_training,
                                                torch)
@@ -2729,16 +2982,16 @@ def _main_phases(torch):
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": ref + "37",
          "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
-                      + k1_mesh + k1_ckpt + k1_llama + k1_moe_serve + k1_moe
-                      + k1_moe_mesh), **k1},
+                      + k1_mesh + k1_ckpt + k1_sel + k1_llama + k1_moe_serve
+                      + k1_moe + k1_moe_mesh), **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
-         "launches": (k2_train + k2_mesh + k2_ckpt + k2_llama + k2_moe
-                      + k2_moe_mesh), **k2},
+         "launches": (k2_train + k2_mesh + k2_ckpt + k2_sel + k2_llama
+                      + k2_moe + k2_moe_mesh), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
-         "launches": (k3_train + k3_mesh + k3_ckpt + k3_llama + k3_moe
-                      + k3_moe_mesh), **k3}]
+         "launches": (k3_train + k3_mesh + k3_ckpt + k3_sel + k3_llama
+                      + k3_moe + k3_moe_mesh), **k3}]
 
 
 if __name__ == "__main__":

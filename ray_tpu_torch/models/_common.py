@@ -1,6 +1,7 @@
 """Pieces the port's models share: the rounding of JAX's python scalars,
 block rematerialisation, the placing of a model on a mesh (:func:`build`,
-:func:`draw`), the vocab-parallel embedding and cross-entropy, the losses'
+:func:`draw`), the lookups as ``jnp.take`` and ``jnp.take_along_axis``
+take them (the vocab-parallel embedding and cross-entropy), the losses'
 global denominators over a batch split across data ranks, and the limit
 that raise (ROADMAP.md's item 12, and the zoo's limits on a mesh).
 
@@ -96,35 +97,73 @@ def draw(model: nn.Module, generator: torch.Generator,
     return model
 
 
-# -- vocab-parallel embedding and cross-entropy --------------------------
+# -- lookups, as jnp.take and jnp.take_along_axis ------------------------
+#
+# An id in [-n, 0) wraps to id + n; an id outside [-n, n) reads a NaN row
+# (a NaN logit), and in the gradient adds to no row. On a vocab split over
+# tp the same holds of the global vocab. The index that reaches a gather
+# always lies in its table: on the card an index out of range trips a
+# device-side assert, which ends the CUDA context.
+
+def wrap_ids(ids, n: int):
+    """(``ids`` taken into ``[0, n)``, as int64: those in ``[-n, 0)``
+    wrapped to ``id + n``, those outside ``[-n, n)`` to some row whose
+    value the caller replaces; which of them lay outside ``[-n, n)``)."""
+    ids = ids.long()
+    return ids.remainder(n), (ids < -n) | (ids >= n)
+
+
+def _nan_where(x, outside):
+    """``x`` with NaN where ``outside`` (broadcast from the left) holds;
+    no gradient flows there."""
+    outside = outside.reshape(outside.shape
+                              + (1,) * (x.dim() - outside.dim()))
+    return x.masked_fill(outside, float("nan"))
+
 
 def embed(tokens, wte):
-    """``F.embedding(tokens, wte)``; on a vocab split over tp, this rank's
-    rows (zero for ids outside its block) summed over the group."""
+    """``jnp.take(wte, tokens, axis=0)``. On a vocab split over tp each
+    rank takes its rows (zero for ids outside its block) and the group
+    sums them; the NaN rows of ids outside the whole vocab come after the
+    sum, so that no rank's partial sum, and no gradient the sum passes
+    back, holds a NaN."""
     from ray_tpu_torch.parallel.sharding import from_tp, tp_local
     table, vocab = tp_local(wte)
-    if vocab is None:
-        return F.embedding(tokens, table)
     n = table.shape[0]
-    ids = tokens - vocab.index * n
+    if vocab is None:
+        ids, outside = wrap_ids(tokens, n)
+        return _nan_where(F.embedding(ids, table), outside)
+    ids, outside = wrap_ids(tokens, n * vocab.size)
+    ids = ids - vocab.index * n
     inside = (ids >= 0) & (ids < n)
     rows = F.embedding(ids.clamp(0, n - 1), table)
-    return from_tp(rows.masked_fill(~inside[..., None], 0.0), vocab)
+    return _nan_where(from_tp(rows.masked_fill(~inside[..., None], 0.0),
+                              vocab), outside)
 
 
-def ce_stats(logits, targets, mask, z_loss: float = 0.0, vocab=None):
+def ce_stats(logits, targets, mask, z_loss: float = 0.0, vocab=None,
+             pick_log_probs: bool = False):
     """fp32 CE pieces for one [..., vocab] logits slab → (Σ nll·m, Σ hit·m);
-    hits by first-max argmax, as ``jnp.argmax``. With ``vocab`` (an
+    the target logit as ``jnp.take_along_axis`` takes it (so a target out
+    of range gives a NaN nll), hits by first-max argmax against the target
+    as given, as ``jnp.argmax(...) == targets``. With ``vocab`` (an
     ``AxisShard``) the slab is this rank's block of a vocab split over
-    tp."""
+    tp. ``pick_log_probs``: the nll is the target's entry of the
+    log-softmax, as BERT's ``mlm_loss`` takes it, so a target out of range
+    leaves its position no gradient at all (``logz - tgt`` keeps logz's)."""
     logits = logits.float()
     if vocab is None:
         logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        ids, outside = wrap_ids(targets, logits.shape[-1])
+        tgt = _nan_where(torch.gather(logits, -1, ids[..., None])[..., 0],
+                         outside)
         hits = logits.argmax(-1) == targets
     else:
         logz, tgt, hits = vocab_parallel_stats(logits, targets, vocab)
     nll = logz - tgt
+    if pick_log_probs:
+        n = logits.shape[-1] * (1 if vocab is None else vocab.size)
+        nll = _nan_where(nll, wrap_ids(targets, n)[1])
     if z_loss:
         nll = nll + z_loss * logz ** 2
     return (nll * mask).sum(), (hits.float() * mask).sum()
@@ -134,7 +173,9 @@ def vocab_parallel_stats(logits, targets, vocab):
     """(logsumexp, target logit, first-max argmax == target) over the
     whole vocab from this rank's block ``[start, start + n)`` of the
     logits: explicit max and sum reductions over tp, no gathered logits.
-    On one rank each is the plain formula's value exactly."""
+    The target logit and the argmax follow ``jnp.take_along_axis`` and
+    ``jnp.argmax`` (a NaN counts as the largest value). On one rank each
+    is the plain formula's value exactly."""
     from ray_tpu_torch.parallel.sharding import all_reduce, from_tp
     max_op, min_op = torch.distributed.ReduceOp.MAX, \
         torch.distributed.ReduceOp.MIN
@@ -143,14 +184,20 @@ def vocab_parallel_stats(logits, targets, vocab):
     lse = torch.logsumexp(logits, dim=-1)
     top = all_reduce(lse, vocab.group, max_op)
     logz = top + torch.log(from_tp(torch.exp(lse - top), vocab))
-    ids = targets.long() - start
+    ids, outside = wrap_ids(targets, n * vocab.size)
+    ids = ids - start
     inside = (ids >= 0) & (ids < n)
     tgt = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
-    tgt = from_tp(tgt.masked_fill(~inside, 0.0), vocab)
-    arg = logits.detach().argmax(-1)
+    tgt = _nan_where(from_tp(tgt.masked_fill(~inside, 0.0), vocab), outside)
+    arg = logits.detach().argmax(-1)  # this block's first NaN, if any
     best = torch.gather(logits.detach(), -1, arg[..., None])[..., 0]
-    top_best = all_reduce(best, vocab.group, max_op)
-    first = torch.where(best == top_best, arg + start, n * vocab.size)
+    nan = best.isnan()
+    # One max over the group of (any NaN here, the largest non-NaN).
+    flag, top_best = all_reduce(torch.stack(
+        [nan.float(), best.masked_fill(nan, -float("inf"))]), vocab.group,
+        max_op)
+    mine = torch.where(flag > 0, nan, best == top_best)
+    first = torch.where(mine, arg + start, n * vocab.size)
     first = all_reduce(first, vocab.group, min_op)
     return logz, tgt, first == targets
 
@@ -219,16 +266,19 @@ def loss_and_metrics(nll_sum, hit_sum, mask32, groups, aux=None,
                    "perplexity": torch.exp(torch.clamp_max(ce, 20.0))}
 
 
-def masked_ce(logits, targets, mask: Optional[torch.Tensor], vocab=None
+def masked_ce(logits, targets, mask: Optional[torch.Tensor], vocab=None,
+              pick_log_probs: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The zoo's fp32 cross-entropy over ``mask`` (every item when None)
     of a batch that the current step may split over data ranks →
-    (this rank's share, the global {"loss", "accuracy"})."""
+    (this rank's share, the global {"loss", "accuracy"});
+    ``pick_log_probs`` as :func:`ce_stats`."""
     groups = batch_groups()
     mask32 = (torch.ones(targets.shape, dtype=torch.float32,
                          device=logits.device) if mask is None
               else mask.float())
-    nll_sum, hit_sum = ce_stats(logits, targets, mask32, vocab=vocab)
+    nll_sum, hit_sum = ce_stats(logits, targets, mask32, vocab=vocab,
+                                pick_log_probs=pick_log_probs)
     share, m = loss_and_metrics(nll_sum, hit_sum, mask32,
                                 [g.group for g in groups])
     return share, {"loss": m["loss"], "accuracy": m["accuracy"]}

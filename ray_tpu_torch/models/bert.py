@@ -35,7 +35,8 @@ from torch import nn
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
                                           check_whole_sequence, checkpointed,
-                                          draw, embed, masked_ce)
+                                          draw, embed, masked_ce,
+                                          wrap_ids)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.models.gpt import _empty, _layernorm
@@ -151,16 +152,18 @@ class Block(nn.Module):
 
 
 def _segment_rows(segment_ids, table):
-    """``F.embedding(segment_ids, table)`` for the few segment rows, as a
+    """``jnp.take(table, segment_ids, axis=0)`` for the few segment rows
+    (ids wrapped and NaN rows out of range, as ``_common.embed``), as a
     select of each row: its backward sums a row's gradient by a reduction
     over the positions. The embedding's backward over ids that repeat
     thousands of times (every position is segment 0 or 1) is not
     deterministic on the card: two runs of one step gave ``wse`` gradients
     that differ in ~46% of their elements (tests/measure_zoo_mesh_gap.py)."""
-    rows = table[0].expand(*segment_ids.shape, table.shape[-1])
+    ids, outside = wrap_ids(segment_ids, table.shape[0])
+    rows = table[0].expand(*ids.shape, table.shape[-1])
     for s in range(1, table.shape[0]):
-        rows = torch.where((segment_ids == s)[..., None], table[s], rows)
-    return rows
+        rows = torch.where((ids == s)[..., None], table[s], rows)
+    return rows.masked_fill(outside[..., None], float("nan"))
 
 
 class Bert(nn.Module):
@@ -267,10 +270,14 @@ def mlm_loss(model: Bert, tokens, targets, mask_positions,
     step splits the batch over data ranks (``parallel.mesh.
     registered_mesh``), the inputs are this rank's rows and the result is
     this rank's share: its sum over the global count of masked positions,
-    as GSPMD's mean over the global batch divides."""
+    as GSPMD's mean over the global batch divides. The target's
+    log-probability is taken from the log-softmax, as the JAX package's
+    ``jnp.take_along_axis`` takes it: a target out of range gives a NaN
+    loss and its position no gradient."""
     logits, vocab = model.mlm_logits(tokens, attention_mask=attention_mask,
                                      whole=False)
-    return masked_ce(logits, targets, mask_positions, vocab)[0]
+    return masked_ce(logits, targets, mask_positions, vocab,
+                     pick_log_probs=True)[0]
 
 
 # -- parameters ---------------------------------------------------------

@@ -18,11 +18,12 @@ leading axis for ``lax.scan``), same numerics:
 (``ops/flash_attention.py``: K1 forward, K2/K3 backward). :func:`loss_fn`
 is the JAX package's next-token cross-entropy, chunked over the vocab
 head when ``loss_chunk`` is set. With ``remat`` each block is
-checkpointed (``torch.utils.checkpoint``) while gradients are recorded:
-``"full"`` saves only the block's input and recomputes the block in the
-backward; ``"selective"`` also keeps the outputs of the block's matmuls
-and of the flash forward, so the backward recomputes only the cheap
-elementwise work.
+checkpointed (non-reentrant ``torch.utils.checkpoint``, with or without
+a mesh) while gradients are recorded: ``"full"`` saves only the block's
+input and recomputes the block in the backward; ``"selective"`` also
+keeps, through the checkpoint's ``context_fn`` (:class:`_Kept`), the
+outputs of the block's projections and of the flash forward, so the
+backward recomputes only the cheap elementwise work.
 
 With ``n_experts > 0`` every block's FFN is the reference's top-k routed
 MoE (:func:`_moe_ffn`: capacity drop in (sequence, k) order, dense
@@ -37,6 +38,7 @@ over the gathered sequence.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, replace
 from functools import partial
@@ -55,7 +57,7 @@ from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.ops import ring_attention as ring
 from ray_tpu_torch.ops import ulysses
-from ray_tpu_torch.ops.flash_attention import _flash_forward, flash_attention
+from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import current_mesh
 from ray_tpu_torch.parallel.sharding import (AxisShard, PartitionSpec,
@@ -183,19 +185,31 @@ def _layernorm(x, scale, bias, eps):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def _rotary(x, positions, rotary_dim):
+def _rotary_tables(positions, rotary_dim, dtype):
+    """(cos, sin) of each position's rotary angles, ``[B, S, 1,
+    rotary_dim / 2]`` in ``dtype`` (None without rotary): built once a
+    forward from positions ``[B, S]``, read by every block's
+    :func:`_rotary`."""
+    if rotary_dim == 0:
+        return None
+    half = rotary_dim // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half))
+    angles = positions[..., None].float() * freqs  # [B, S, half]
+    return (torch.cos(angles)[:, :, None, :].to(dtype),
+            torch.sin(angles)[:, :, None, :].to(dtype))
+
+
+def _rotary(x, tables, rotary_dim):
     """Rotary embedding on the first ``rotary_dim`` dims of each head,
     rotating the prefix's two halves against each other (as the JAX
-    package's ``_rotary`` computes). x: [B, S, H, D], positions: [B, S]."""
+    package's ``_rotary`` computes). x: [B, S, H, D], tables: from
+    :func:`_rotary_tables` in x's dtype."""
     if rotary_dim == 0:
         return x
     rot, rest = x[..., :rotary_dim], x[..., rotary_dim:]
     half = rotary_dim // 2
-    freqs = 1.0 / (10000.0 ** (torch.arange(
-        half, dtype=torch.float32, device=x.device) / half))
-    angles = positions[..., None].float() * freqs  # [B, S, half]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    cos, sin = tables
     x1, x2 = rot[..., :half], rot[..., half:]
     rot_out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([rot_out, rest], dim=-1)
@@ -275,112 +289,109 @@ def _local_attention(q, k, v, cfg: GPTConfig):
     if cfg.attn_impl == "dot":
         return _dot_attention(q, k, v)
     if cfg.attn_impl == "flash":
-        return _recorded(
-            lambda: _flash_forward(q, k, v, True, cfg.attn_blk_q,
-                                   cfg.attn_blk_k),
-            lambda saved: flash_attention(q, k, v, True, cfg.attn_blk_q,
-                                          cfg.attn_blk_k, saved),
-            lambda: flash_attention(q, k, v, True, cfg.attn_blk_q,
-                                    cfg.attn_blk_k))
+        kept = _KEPT
+        return flash_attention(q, k, v, True, cfg.attn_blk_q, cfg.attn_blk_k,
+                               None if kept is None else kept.take)
     raise ValueError(f"Unknown attn_impl {cfg.attn_impl!r}")
 
 
 # -- rematerialisation --------------------------------------------------
 
-class _Recording:
+def _alias(value):
+    """``value`` (a tensor, None, or a tuple of them) as new tensors on the
+    same storage, with no autograd history."""
+    if isinstance(value, tuple):
+        return tuple(_alias(v) for v in value)
+    return None if value is None else value.detach()
+
+
+class _Kept:
     """What remat_policy="selective" keeps of one block: the output of
-    every matmul (the q, k, v, output and FFN projections; among them the
-    attn_q, attn_k, attn_v and ffn_in the JAX package names, taken before
-    rotary) and the flash forward's (out, lse) (attn_raw). The forward
-    appends them; the backward's replay takes them back in order."""
+    every projection (q, k, v, output and FFN; among them the attn_q,
+    attn_k, attn_v and ffn_in the JAX package names, taken before rotary)
+    and the flash forward's (out, lse) (attn_raw). :meth:`contexts` is
+    the block's ``checkpoint`` ``context_fn``: in the forward
+    :meth:`take` runs what it is given and keeps the result; in the
+    recompute of the backward it hands the kept results back in order,
+    and the rest reruns: LayerNorm, rotary, GELU and the casts, dot
+    attention and the MoE layer, with their collectives in the forward's
+    order. Only the calls that ask for it (:func:`_matmul`, the flash
+    forward) see it: nothing runs per operator, and the backward is the
+    forward's own graph, as under "full"."""
 
     def __init__(self):
-        self.outputs = []
-        self.replaying = False
+        self.values = []
+        self.index = None  # the next value to hand back, in the recompute
+
+    def take(self, compute):
+        """``compute()``, kept, in the forward; what it returned there, in
+        the recompute."""
+        if self.index is None:
+            value = compute()
+            self.values.append(_alias(value))
+            return value
+        self.index += 1
+        return _alias(self.values[self.index - 1])
+
+    @contextlib.contextmanager
+    def _running(self, recompute: bool):
+        global _KEPT
+        outer, _KEPT = _KEPT, self
+        self.index = 0 if recompute else None
+        try:
+            yield
+        finally:
+            _KEPT = outer
+
+    @classmethod
+    def contexts(cls):
+        kept = cls()
+        return kept._running(False), kept._running(True)
 
 
-_RECORDING: Optional[_Recording] = None  # of the block being run
+_KEPT: Optional[_Kept] = None  # of the selective block being run
 
 
-def _recorded(compute, replay, plain):
-    """Under a selective block: ``compute()``, kept, in its forward;
-    ``replay(kept value)`` in its backward. Else ``plain()``."""
-    rec = _RECORDING
-    if rec is None:
-        return plain()
-    if rec.replaying:
-        return replay(rec.outputs.pop(0))
-    value = compute()
-    rec.outputs.append(value)
-    return value[0] if isinstance(value, tuple) else value
-
-
-class _KeptMatmul(torch.autograd.Function):
-    """``a @ b`` for a ``[..., K]`` by a ``[K, N]`` whose value was kept:
-    returns it, and differentiates the product."""
+class _KeptProduct(torch.autograd.Function):
+    """In a selective block's recompute, ``out``: the output of ``a2 @ b``
+    (``a`` folded to 2-D) that the block's forward kept. The backward runs
+    the forward's graph, whose product (aten's ``mm``) reads what the
+    recompute saves in its place, matched by order: so this saves what
+    that ``mm`` saved, ``b`` when ``a2`` needs a gradient, then ``a2``
+    when ``b`` does. Its own graph is dropped undifferentiated."""
 
     @staticmethod
-    def forward(ctx, a, b, out):
-        ctx.save_for_backward(a, b)
+    def forward(ctx, a2, b, out):
+        ctx.save_for_backward(*([b] if a2.requires_grad else []),
+                              *([a2] if b.requires_grad else []))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        gb = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
-        return g @ b.T, gb, None
+        raise RuntimeError("a selective block's recompute is not "
+                           "differentiated")
 
 
 def _matmul(a, b):
-    return _recorded(lambda: a @ b,
-                     lambda out: _KeptMatmul.apply(a, b, out),
-                     lambda: a @ b)
-
-
-class _SelectiveBlock(torch.autograd.Function):
-    """One block under remat_policy="selective". The forward runs it
-    without a graph and keeps its input and a :class:`_Recording`; the
-    backward replays it with the kept values handed back, so it recomputes
-    LayerNorm, rotary, GELU and the casts (and dot attention and the MoE
-    routing), but no dense matmul and no K1, and differentiates the
-    replay. Returns the block's output, and its MoE aux term for a MoE
-    config."""
-
-    @staticmethod
-    def forward(ctx, block, cfg, positions, x, *params):
-        global _RECORDING
-        rec = _Recording()
-        _RECORDING = rec
-        try:
-            y, aux = block(x, positions, cfg)
-        finally:
-            _RECORDING = None
-        ctx.block, ctx.cfg, ctx.recording = block, cfg, rec
-        ctx.save_for_backward(positions, x)
-        return (y, aux) if cfg.is_moe else y
-
-    @staticmethod
-    def backward(ctx, *grad):
-        global _RECORDING
-        positions, x = ctx.saved_tensors
-        params = list(ctx.block.parameters())
-        ctx.recording.replaying = True
-        with torch.enable_grad():
-            x = x.detach().requires_grad_()
-            _RECORDING = ctx.recording
-            try:
-                y, aux = ctx.block(x, positions, ctx.cfg)
-            finally:
-                _RECORDING = None
-            outs = (y, aux) if ctx.cfg.is_moe else (y,)
-            grads = torch.autograd.grad(outs, [x] + params, grad)
-        return (None, None, None, *grads)
+    """``a @ b`` for a ``[..., K]`` by a ``[K, N]``; in a block under
+    remat_policy="selective", the product kept in its forward and taken
+    back in its recompute."""
+    kept = _KEPT
+    if kept is None:
+        return a @ b
+    out = kept.take(lambda: a @ b)
+    if kept.index is None:  # the forward: the product is in its graph
+        return out
+    return _KeptProduct.apply(a.reshape(-1, a.shape[-1]), b, out)
 
 
 def _remat_block(block: "Block", cfg: GPTConfig):
     """``block`` under the config's remat policy (the JAX package's
-    ``hidden_states``): the block as it is when remat is off or nothing
-    records gradients."""
+    ``hidden_states``), through one non-reentrant ``checkpoint`` with or
+    without a mesh (on a mesh the block is an FSDP2 unit, whose hooks see
+    an ordinary forward and backward): "full" keeps the block's input
+    alone, "selective" also what :class:`_Kept` names. The block as it is
+    when remat is off or nothing records gradients."""
     if not cfg.remat:
         return block
     if cfg.remat_policy not in ("full", "selective"):
@@ -389,12 +400,10 @@ def _remat_block(block: "Block", cfg: GPTConfig):
     if not torch.is_grad_enabled():
         return block
     if cfg.remat_policy == "selective":
-        def selective(x, positions, cfg):
-            out = _SelectiveBlock.apply(block, cfg, positions, x,
-                                        *block.parameters())
-            return out if cfg.is_moe else (out, None)
-        return selective
-    return partial(checkpoint, block, use_reentrant=False)
+        return partial(checkpoint, block, use_reentrant=False,
+                       preserve_rng_state=False, context_fn=_Kept.contexts)
+    return partial(checkpoint, block, use_reentrant=False,
+                   preserve_rng_state=False)
 
 
 # -- modules ------------------------------------------------------------
@@ -433,10 +442,11 @@ class Block(nn.Module):
             self.ln2_scale = _empty((d,), cfg, device)
             self.ln2_bias = _empty((d,), cfg, device)
 
-    def forward(self, x, positions, cfg: GPTConfig):
-        """x: [B, S, d] → ([B, S, d], the MoE aux term or None). On a tp
-        mesh the heads and the MLP columns of this rank's blocks; the
-        residual stream is whole."""
+    def forward(self, x, rotary, cfg: GPTConfig):
+        """x: [B, S, d] → ([B, S, d], the MoE aux term or None); rotary:
+        the forward's :func:`_rotary_tables`. On a tp mesh the heads and
+        the MLP columns of this rank's blocks; the residual stream is
+        whole."""
         dt = cfg.dtype
         B, S, d = x.shape
         h = _layernorm(x, local(self.ln1_scale), local(self.ln1_bias),
@@ -449,8 +459,8 @@ class Block(nn.Module):
             return _matmul(h_attn, w.to(dt).reshape(d, -1)).view(
                 B, S, w.shape[1], w.shape[2])
 
-        q = _rotary(proj(wq), positions, cfg.rotary_dim)
-        k = _rotary(proj(self.wk), positions, cfg.rotary_dim)
+        q = _rotary(proj(wq), rotary, cfg.rotary_dim)
+        k = _rotary(proj(self.wk), rotary, cfg.rotary_dim)
         v = proj(self.wv)
         attn = _attention(q, k, v, cfg)
         attn_out = from_tp(_matmul(attn.reshape(B, S, -1),
@@ -616,9 +626,10 @@ class GPT(nn.Module):
         if positions is None:
             positions = _positions(tokens)
         x = embed(tokens, self.wte).to(self.cfg.dtype)
+        rotary = _rotary_tables(positions, self.cfg.rotary_dim, x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x, a = _remat_block(block, self.cfg)(x, positions, self.cfg)
+            x, a = _remat_block(block, self.cfg)(x, rotary, self.cfg)
             if a is not None:
                 aux = aux + a
         x = _layernorm(x, local(self.lnf_scale), local(self.lnf_bias),

@@ -373,13 +373,17 @@ def _flash_backward(q, k, v, out, lse, g, causal: bool, blk_q: int,
 class FlashAttention(torch.autograd.Function):
     """Flash attention whose backward runs K2 and K3 on the kernel route
     and differentiates the blockwise recurrence on the ragged route.
-    ``saved``, the (out, lse) an earlier :func:`_flash_forward` returned
-    for these q, k, v, stands in for running the forward again."""
+    ``keep``, when given, is called with the forward instead of running
+    it: it runs the forward and keeps its (out, lse), or hands back what
+    it kept of an earlier run on these q, k, v (``models/gpt.py``'s
+    selective remat)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, blk_q: int = 1024,
-                blk_k: int = 1024, saved=None):
-        out, lse = saved or _flash_forward(q, k, v, causal, blk_q, blk_k)
+                blk_k: int = 1024, keep=None):
+        def run():
+            return _flash_forward(q, k, v, causal, blk_q, blk_k)
+        out, lse = run() if keep is None else keep(run)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.blk_q, ctx.blk_k = causal, blk_q, blk_k
         return out
@@ -401,9 +405,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal: bool = True, blk_q: int = 1024,
-                    blk_k: int = 1024, saved=None):
-    """q: [B, S, H, D], k/v: [B, S, KVH, D] → [B, S, H, D]; ``saved``: see
+                    blk_k: int = 1024, keep=None):
+    """q: [B, S, H, D], k/v: [B, S, KVH, D] → [B, S, H, D]; ``keep``: see
     :class:`FlashAttention`. Plain tensors only (a DTensor raises
     ``TypeError``)."""
     _refuse_dtensors(q, k, v)
-    return FlashAttention.apply(q, k, v, causal, blk_q, blk_k, saved)
+    return FlashAttention.apply(q, k, v, causal, blk_q, blk_k, keep)

@@ -199,11 +199,6 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None, rules=None,
     rules = _rules(mesh, rules)
     optimizer = optimizer or default_optimizer()
     batching = _Batching(mesh, rules)
-    if mesh is not None and cfg.remat and cfg.remat_policy == "selective":
-        raise NotImplementedError(
-            "remat_policy='selective' hands its block's parameters to "
-            "autograd, past FSDP2's gradient reduction; use 'full' on a "
-            "mesh")
 
     def grads_and_metrics(model, params, micro):
         loss, metrics = gpt.loss_fn(model, micro["tokens"], micro["targets"],

@@ -199,6 +199,91 @@ def gpt_train_step(preset, overrides, mesh_cfg, rules_name, opt_name,
             "step": int(state["step"])}
 
 
+def gpt_forward(preset, overrides, mesh_cfg, rules_name, params0, tokens):
+    """The port's GPT logits on the mesh from the JAX parameters (the
+    whole batch on every rank)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import sharding
+
+    mesh, rules = _mesh(mesh_cfg), _rules(rules_name)
+    cfg = gpt.config(preset, **overrides)
+    model = sharding.shard_model(gpt.from_jax_params(params0, cfg, "cpu"),
+                                 mesh, gpt.param_specs(cfg, rules))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens))
+    model.reshard()
+    return {"coords": _coords(mesh), "logits": logits.numpy()}
+
+
+def vocab_stats(logits, targets):
+    """``_common.vocab_parallel_stats`` on this rank's block of the last
+    dim of ``logits`` (the vocab split over every rank, as ``tp``): the
+    logsumexp, target logit and hits over the whole vocab."""
+    import torch
+
+    from ray_tpu_torch.models import _common
+    from ray_tpu_torch.parallel.sharding import AxisShard
+
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    n = logits.shape[-1] // world
+    block = torch.from_numpy(logits[..., rank * n:(rank + 1) * n].copy())
+    logz, tgt, hits = _common.vocab_parallel_stats(
+        block, torch.from_numpy(targets),
+        AxisShard(torch.distributed.group.WORLD, rank, world))
+    return logz.numpy(), tgt.numpy(), hits.numpy()
+
+
+def remat_grads(preset, overrides, mesh_cfg, rules_name, params0, batch):
+    """This rank's gradient blocks of one backward on the mesh under each
+    remat policy, from the JAX parameters: the train step's loss and
+    reductions (``parallel.train_step``), without the optimizer; and the
+    runs of K1's plain version (its stand-in on the CPU) under each."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel import train_step as ts
+
+    mesh, rules = _mesh(mesh_cfg), _rules(rules_name)
+    out = {"coords": _coords(mesh), "k1_runs": {}}
+    plain = fa._flash_forward_reference
+    for policy in ("full", "selective"):
+        runs = []
+
+        def counted(*args):
+            runs.append(1)
+            return plain(*args)
+        cfg = gpt.config(preset, remat=True, remat_policy=policy,
+                         **overrides)
+        model = sharding.shard_model(gpt.from_jax_params(params0, cfg,
+                                                         "cpu"),
+                                     mesh, gpt.param_specs(cfg, rules))
+        batching = ts._Batching(mesh, rules)
+        fa._flash_forward_reference = counted
+        try:
+            with batching.registered():
+                b = batching.local({k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+                loss, _ = gpt.loss_fn(model, b["tokens"], b["targets"],
+                                      b.get("mask"),
+                                      batch_groups=batching.groups)
+                (loss * batching.blocks).backward()
+        finally:
+            fa._flash_forward_reference = plain
+        out["k1_runs"][policy] = len(runs)
+        params = dict(model.named_parameters())
+        sharding.average_replicated_grads(params.values())
+        grads = [p.grad for p in params.values()]
+        batching.sum_over_sequence(grads)
+        out[policy] = {n: sharding.local(g).numpy().copy()
+                       for n, g in zip(params, grads)}
+    return out
+
+
 def seeded_init(preset, mesh_cfg, rules_name, seed, opt_name):
     """init_train_state on the mesh against the same seed without one:
     every rank's block of every tensor must be that block of the
@@ -732,10 +817,26 @@ def zoo_errors(mesh_cfg):
     return out
 
 
+def zoo_uneven_vocab(mesh_cfg, rules_name):
+    """The ValueError of bert-tiny with a vocab of 30 placed on the mesh
+    (None if it placed)."""
+    import torch
+
+    from ray_tpu_torch.models import bert
+    try:
+        bert.init(bert.config("bert-tiny", vocab_size=30), torch.Generator(),
+                  "cpu", mesh=_mesh(mesh_cfg), rules=_rules(rules_name))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
-                                  llama_forward, tree_blocks, ckpt_save,
-                                  ckpt_restore, dcp_round_trip, ring_whole,
-                                  ulysses_whole, pipeline_run,
-                                  pipeline_errors, moe_layer, zoo_forward,
-                                  zoo_train, zoo_seeded_init, zoo_ckpt_save,
-                                  zoo_ckpt_restore, zoo_errors)}
+                                  gpt_forward, remat_grads, vocab_stats,
+                                  llama_forward,
+                                  tree_blocks, ckpt_save, ckpt_restore,
+                                  dcp_round_trip, ring_whole, ulysses_whole,
+                                  pipeline_run, pipeline_errors, moe_layer,
+                                  zoo_forward, zoo_train, zoo_seeded_init,
+                                  zoo_ckpt_save, zoo_ckpt_restore,
+                                  zoo_errors, zoo_uneven_vocab)}

@@ -510,3 +510,74 @@ def test_k1_to_k3_through_local_map_on_heads_of_a_dtensor(nccl_mesh):
     assert torch.equal(out.to_local(), want)
     for got, ref in zip(grads, want_grads):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("rules", ["tp_fsdp_rules", "ShardingRules"])
+def test_selective_remat_on_the_mesh_launches_k1_once_per_layer(nccl_mesh,
+                                                                rules):
+    """remat_policy="selective" through FSDP2 and DTensor on the 1-rank
+    mesh: each block keeps K1's (out, lse) from its forward for the
+    recompute, so each step launches K1, K2 and K3 once per layer, and the
+    losses are those of the selective step without a mesh (fp32 summation
+    order, 1e-5; one rank runs the same ops)."""
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel import train_step as ts
+    cfg = gpt.config("gpt-micro", attn_impl="flash", remat=True,
+                     remat_policy="selective")
+    rules = getattr(sharding, rules)()
+
+    def opt():
+        return ts.default_optimizer(1e-3, warmup_steps=1)
+    plain = ts.init_train_state(cfg, optimizer=opt(), seed=0)
+    placed = ts.init_train_state(cfg, nccl_mesh, rules, opt(), seed=0)
+    steps = [ts.make_train_step(cfg, optimizer=opt()),
+             ts.make_train_step(cfg, nccl_mesh, rules, opt())]
+    rng = np.random.default_rng(34)
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (4, 257))).cuda()
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        plain, m_plain = steps[0](plain, batch)
+        before = fa.launches, fa.dq_launches, fa.dkv_launches
+        placed, m_placed = steps[1](placed, batch)
+        torch.cuda.synchronize()
+        assert (fa.launches - before[0], fa.dq_launches - before[1],
+                fa.dkv_launches - before[2]) == (cfg.n_layers,) * 3
+        assert float(m_placed["loss"]) == pytest.approx(
+            float(m_plain["loss"]), rel=1e-5)
+
+
+def test_lookups_out_of_range_raise_no_device_assert(cuda):
+    """Ids and targets [0, n-1, -1, -n, n, -n-1] on the card: every index
+    is clamped before it reaches a gather, so nothing trips a device-side
+    assert (which would end the CUDA context); the rows and nll are the
+    CPU's: wrapped ids read their rows, ids out of range NaN."""
+    from ray_tpu_torch.models import _common, bert
+    n = 50304
+    ids = torch.tensor([[0, n - 1, -1, -n, n, -n - 1]])
+    table = torch.from_numpy(np.random.default_rng(35).standard_normal(
+        (n, 16), dtype=np.float32))
+    logits = torch.from_numpy(np.random.default_rng(36).standard_normal(
+        (6, n), dtype=np.float32))
+    segments = torch.tensor([[0, 1, -1, -2, 2, -3]])
+    for device in ("cpu", cuda):
+        rows = _common.embed(ids.to(device), table.to(device))
+        seg = bert._segment_rows(segments.to(device), table[:2].to(device))
+        nll = [_common.ce_stats(logits[i:i + 1].to(device),
+                                ids[0, i:i + 1].to(device),
+                                torch.ones(1, device=device))[0]
+               for i in range(6)]
+        torch.cuda.synchronize()
+        got = (rows.cpu(), seg.cpu(), torch.stack(nll).cpu())
+        if device == "cpu":
+            want = got
+    assert torch.equal(got[0][0, :4], table[[0, n - 1, n - 1, 0]])
+    assert torch.isnan(got[0][0, 4:]).all()
+    assert torch.isnan(got[1][0, 4:]).all()
+    torch.testing.assert_close(got[0], want[0], equal_nan=True, atol=0,
+                               rtol=0)
+    torch.testing.assert_close(got[1], want[1], equal_nan=True, atol=0,
+                               rtol=0)
+    torch.testing.assert_close(got[2], want[2], equal_nan=True, atol=1e-6,
+                               rtol=1e-6)
+    assert torch.isnan(got[2][4:]).all() and torch.isfinite(got[2][:4]).all()

@@ -275,10 +275,6 @@ def test_specs_the_port_cannot_place_raise(fake_world):
                                   tgpt.param_specs(cfg, rules))
     with pytest.raises(NotImplementedError, match="batch"):
         tts.make_train_step(cfg, mesh, tsharding.ShardingRules(batch="tp"))
-    with pytest.raises(NotImplementedError, match="selective"):
-        tts.make_train_step(
-            tgpt.config("gpt-micro", remat=True, remat_policy="selective"),
-            mesh, tsharding.tp_fsdp_rules())
     with pytest.raises(ValueError, match="mesh"):
         tts.make_train_step(cfg, None, tsharding.tp_fsdp_rules())
 

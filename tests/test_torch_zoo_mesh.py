@@ -364,3 +364,18 @@ def test_limits_raise(pools):
         assert "does not divide over tp=4" in e["classes"]
         assert "not ported" in e["bert_sp"] and "not ported" in e["t5_sp"]
         assert "item 12" in e["layers"]
+
+
+def test_an_uneven_vocab_raises_in_both_packages(pools):
+    """bert-tiny with a vocab of 30 over tp=4 (fsdp=2): the JAX package's
+    placement (``shard_tree``, ``jax.device_put``) raises ValueError, and
+    so does the port's: GSPMD pads no uneven parameter here."""
+    mesh_cfg = dict(fsdp=2, tp=4)
+    cfg = jb.config("bert-tiny", vocab_size=30)
+    rules = jsharding.tp_fsdp_rules()
+    params = jax_params(jb, "bert-tiny", vocab_size=30)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        jsharding.shard_tree(params, _jax_mesh(mesh_cfg),
+                             jb.param_specs(cfg, rules))
+    for e in pools[8].run("zoo_uneven_vocab", mesh_cfg, "tp_fsdp_rules"):
+        assert e is not None and "does not divide over tp=4" in e, e
