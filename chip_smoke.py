@@ -118,7 +118,15 @@ printed:
    ms per step, items/s, peak memory and a step's device time beside
    5h's. Then t5-base's state is saved and resumed by both routes, each
    resumed step bit-equal to the uninterrupted one (save and restore
-   seconds printed; the directory deleted).
+   seconds printed; the directory deleted). 5k: the same four placed by
+   ``context_parallel_rules()`` on the 1-rank mesh (BERT's and T5's
+   sequence on ``sp``, an axis of one rank; ViT's and the UNet's images
+   never split) from 5h's seed, their steps composed as in 5i
+   (``average_replicated_grads`` with the model's ``batch_spec``): the
+   losses and first update 5i's bit for bit for ``ZOO_MESH_EXACT``, else
+   by 5i's bounds; the operators a step dispatches equal to 5i's, by
+   name and argument shapes (``_dispatched``); ms per step, items/s and
+   peak memory beside 5i's.
    3b (after phase 3): the lookups as the JAX package's ``jnp.take`` and
    ``jnp.take_along_axis`` take them, on the card at bert-base's
    (30522 x 768) and gpt-410m's (50304 x 1024) tables: ids and targets -1,
@@ -162,6 +170,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 
 import numpy as np
@@ -389,6 +398,8 @@ ZOO_GRAD_FLOOR = 1e-3
 # for T5, 1.5e-2 for the UNet), over 5 steps.
 ZOO_MESH_LOSS_RTOL = 1e-4
 ZOO_MESH_EXACT = ("vit-b16", "bert-base")
+# The range around the profiled run whose kernels _profile counts.
+COUNTED_RUN = "chip_smoke: counted run"
 
 
 def fail(msg: str) -> None:
@@ -1227,7 +1238,8 @@ def _profile_step(torch, model, buf):
     _profile(torch, forward, f"one forward of [{NUM_SLOTS}, {SEQ}]", 8)
 
 
-def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
+def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False,
+             stats=None):
     """Run fn once under torch.profiler and print its device time by
     kernel, the top ``top`` kernels by device time, the port's flash
     kernels by name, and the step's time on the host clock; returns the
@@ -1236,19 +1248,40 @@ def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
     the ``record_function`` ``ranges``, the device time of the kernels
     launched inside it (forward and remat's replay; the backward's
     kernels run outside it). With ``convs``, cuDNN's convolution kernels
-    are a class of their own, counted before the GEMMs."""
-    from torch.profiler import ProfilerActivity, profile
+    are a class of their own, counted before the GEMMs. A ``stats`` dict
+    gets under "kernels" the count of kernels one run of fn launched
+    (copies, fills and annotations are no kernels): fn then runs twice
+    under the profiler and only the second run is read
+    (:func:`_counted_run`), so what the profiler drops as its trace
+    starts falls in the first. A count, not a gate: the profiler may also
+    lose a kernel's record later in a run (:func:`_dispatched` is
+    exact)."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # The ranges also appear on the device's timeline, as annotations.
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")
-              and e.key not in ranges]
+        if stats is not None:
+            fn()
+            torch.cuda.synchronize()
+        with (nullcontext() if stats is None
+              else record_function(COUNTED_RUN)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    if stats is None:
+        # The ranges also appear on the device's timeline, as annotations.
+        events = [e for e in averages
+                  if getattr(e, "device_type", None) is not None
+                  and str(e.device_type).endswith("CUDA")
+                  and e.key not in ranges]
+    else:
+        events = _counted_run(prof)
+        stats["kernels"] = sum(
+            e.count for e in events
+            if not e.key.startswith(("Memcpy", "Memset"))) or None
     total = sum(e.self_device_time_total for e in events)
     if not total:
         print("profile: the profiler saw no device time (not measured)")
@@ -1284,13 +1317,70 @@ def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False):
     print(f"  by class: everything else {rest / 1e3:.3f} ms "
           f"({rest / total:.1%})")
     for name in ranges:
-        mine = [e for e in prof.key_averages() if e.key == name
+        mine = [e for e in averages if e.key == name
                 and not str(e.device_type).endswith("CUDA")]
         t = sum(e.device_time_total for e in mine)
         n = sum(e.count for e in mine)
         print(f"  range {name}: {t / 1e3:.3f} ms ({t / total:.1%}) of "
               f"device time inside it, x{n}")
     return total / 1e3
+
+
+def _counted_run(prof):
+    """The device events of the run inside ``COUNTED_RUN``, annotations
+    left out, by name (``key``, ``count``, ``self_device_time_total`` in
+    us, as ``key_averages()`` rows). An event belongs to the run when the
+    host event that launched it (the one its correlation id links it to,
+    on any thread: the backward's too) starts inside the range; both
+    times are the host's clock. The run before ends with a
+    synchronisation, so none of its kernels is counted here, whatever
+    the profiler lost of it."""
+    from torch.autograd import DeviceType
+    raw = prof.profiler.kineto_results.events()
+    span = next(e for e in raw if e.name() == COUNTED_RUN
+                and e.device_type() == DeviceType.CPU)
+    lo, hi = span.start_ns(), span.start_ns() + span.duration_ns()
+    launched = {e.correlation_id() for e in raw
+                if e.device_type() == DeviceType.CPU
+                and e.linked_correlation_id() == 0
+                and lo <= e.start_ns() <= hi}
+    rows = {}
+    for e in raw:
+        if (e.device_type() == DeviceType.CUDA
+                and not e.is_user_annotation()
+                and e.linked_correlation_id() in launched):
+            n, us = rows.get(e.name(), (0, 0.0))
+            rows[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return [types.SimpleNamespace(key=k, count=n, self_device_time_total=us)
+            for k, (n, us) in rows.items()]
+
+
+def _dispatched(torch, fn):
+    """The operators one run of fn dispatches (a ``TorchDispatchMode``,
+    which the backward's thread inherits), counted by name and the shapes
+    of their tensor arguments: every kernel of the run is launched by one
+    of them. Exact, where a profile is not: the profiler may lose a
+    kernel's record (PERF.md §6, PR 13)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            shapes = tuple(tuple(a.shape) for a in tree_leaves((args, kwargs))
+                           if isinstance(a, torch.Tensor))
+            self.ops[f"{func} {shapes}"] += 1
+            return func(*args, **kwargs)
+    with Count() as mode:
+        fn()
+        torch.cuda.synchronize()
+    return mode.ops
 
 
 def phase_small_reference(torch):
@@ -2547,7 +2637,7 @@ def phase_zoo_training(torch):
     Returns phase 5i's reference of each: the initial weights' fingerprint,
     each step's loss, the parameters after the first step (on the card),
     ms per step, items/s, peak memory above what was held before it, and
-    one profiled step's device time."""
+    one profiled step's device time and kernel launches."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import optim
 
@@ -2603,14 +2693,15 @@ def phase_zoo_training(torch):
         check(set(still) == set(unused),
               f"{preset}: parameters {sorted(set(still) ^ set(unused))} "
               f"moved against their gradients' reach")
+        stats = {}
         device_ms = _profile(
             torch, lambda: _zoo_step(torch, optim, loss_fn, model, params,
                                      opt, opt_state, batch),
-            f"one training step of {preset}", 10, convs=True)
+            f"one training step of {preset}", 10, convs=True, stats=stats)
         ref[preset] = {"init": before, "losses": losses, "after1": after1,
                        "ms": mean_s * 1e3, "items_s": items / mean_s,
                        "peak_gib": (peak - base) / 2**30,
-                       "device_ms": device_ms}
+                       "device_ms": device_ms, "kernels": stats["kernels"]}
         del model, params, opt_state, batch, after1
         gc.collect()
         torch.cuda.empty_cache()
@@ -2671,22 +2762,25 @@ def phase_zoo_small(torch):
               f"{preset} on the card disagrees with the CPU")
 
 
-def _zoo_mesh_step(torch, loss_fn, model, params, opt, opt_state, batch,
-                   mesh, rules):
-    """One training step on the mesh, as a user composes it: the loss with
-    the mesh and rules current, backward (FSDP2 reduces each gradient into
-    its sharded parameter and averages over the data ranks, so the loss
-    share is scaled by the count of batch blocks, 1 here), the gradients
-    of the parameters outside FSDP2 averaged, AdamW's update in place →
-    (the optimizer's state, the loss)."""
+def _zoo_mesh_step(torch, module, loss_fn, model, params, opt, opt_state,
+                   batch, mesh, rules):
+    """One training step on the mesh, as a user composes it: with the
+    mesh and rules current the loss, backward (FSDP2 reduces each
+    gradient into its sharded parameter and averages over the data ranks,
+    so the loss share is scaled by the count of batch blocks, 1 here),
+    and ``average_replicated_grads`` with the model's ``batch_spec`` (the
+    gradients of the parameters outside FSDP2 averaged, and summed over
+    ``sp`` where the model's sequence is split over more than one rank:
+    never here); then AdamW's update in place → (the optimizer's state,
+    the loss)."""
     from ray_tpu_torch.models._common import batch_blocks
     from ray_tpu_torch.parallel import optim
     from ray_tpu_torch.parallel.mesh import registered_mesh
     from ray_tpu_torch.parallel.sharding import average_replicated_grads
     with registered_mesh(mesh, rules):
         loss = loss_fn(model, *batch)
-        (loss * batch_blocks()).backward()
-    average_replicated_grads(params.values())
+        (loss * batch_blocks(module.batch_spec)).backward()
+        average_replicated_grads(params.values(), module.batch_spec)
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in params.items()}
     for p in params.values():
@@ -2709,115 +2803,176 @@ def _zoo_mesh_state(torch, module, cfg, mesh, rules, seed):
     return model, params, opt, opt.init(params, module.leaf_groups(model))
 
 
+def _zoo_mesh_run(torch, mesh, case, rules_name, rules, mine, against):
+    """One model of phase 5h (``case``) placed on the mesh by ``rules``
+    from 5h's seed, 2 warm-up and 4 timed steps and a profiled one: its
+    weights against 5h's fingerprint, its losses and first update against
+    ``mine`` (the reference run's, named ``against``): bit for bit for the
+    models of ``ZOO_MESH_EXACT``, else the step-0 loss bit-equal, later
+    losses within ``ZOO_MESH_LOSS_RTOL`` and the first update within 2 lr.
+    Returns (this run's reference, as 5h's; the model; its AdamW; its
+    state; the batch)."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import local
+
+    preset, module, cfg, make_batch, loss_fn, _ = case
+    items = ZOO_BATCH[preset]
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, params, opt, opt_state = _zoo_mesh_state(
+        torch, module, cfg, mesh, rules, 0)
+    batch = make_batch(torch.Generator(device=DEVICE).manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(isinstance(model, FSDPModule)
+          and all(isinstance(u, FSDPModule) for u in model.fsdp_units())
+          and all(isinstance(p, DTensor) for p in params.values()),
+          f"{preset}: the model is not placed by FSDP2 and DTensor")
+    blocks = {n: local(p) for n, p in params.items()}
+    check(torch.equal(_fingerprint(torch, blocks), mine["init"]),
+          f"{preset}: the weights initialised on the mesh differ from "
+          f"phase 5h's")
+
+    def step():
+        return _zoo_mesh_step(torch, module, loss_fn, model, params, opt,
+                              opt_state, batch, mesh, rules)
+    losses, step_s = [], []
+    for i in range(ZOO_WARMUP + ZOO_STEPS):
+        if i == ZOO_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        opt_state, loss = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            with torch.no_grad():
+                after1 = {n: local(p).detach().clone()
+                          for n, p in params.items()}
+                diffs = [(after1[n] - mine["after1"][n]).abs()
+                         for n in params]
+                n_diff = sum(int((d != 0).sum()) for d in diffs)
+                max_diff = max(float(d.max()) for d in diffs)
+            del diffs
+    peak = torch.cuda.max_memory_allocated() - base
+    rel = [abs(a / b - 1) for a, b in zip(losses, mine["losses"])]
+    print(f"mesh: {preset} under {rules_name}: initialised in "
+          f"{init_s:.2f} s, weights equal to 5h's; losses "
+          f"{[round(x, 6) for x in losses]}; max rel dloss against "
+          f"{against}'s steps {max(rel):.3e}; after the first step "
+          f"{n_diff} parameter elements differ from {against}'s, by up to "
+          f"{max_diff:.3e}")
+    if preset in ZOO_MESH_EXACT:
+        check(losses == mine["losses"] and n_diff == 0,
+              f"{preset}: the mesh's steps are not {against}'s bit for bit")
+    else:
+        check(losses[0] == mine["losses"][0]
+              and max(rel) <= ZOO_MESH_LOSS_RTOL
+              and max_diff <= 2 * ZOO_LR,
+              f"{preset}: the mesh's losses {losses} against {against}'s "
+              f"{mine['losses']}, the first update up to {max_diff}")
+    timed = step_s[ZOO_WARMUP:]
+    mean_s = statistics.mean(timed)
+    stats = {}
+
+    def profiled():
+        nonlocal opt_state
+        opt_state, _ = step()
+    device_ms = _profile(
+        torch, profiled,
+        f"one training step of {preset} on the mesh, {rules_name}", 10,
+        convs=True, stats=stats)
+    ops = _dispatched(torch, profiled)
+    added = ("not measured" if device_ms is None or mine["device_ms"]
+             is None else f"{device_ms - mine['device_ms']:.3f} ms")
+    print(f"mesh: {preset}, {rules_name}: {ZOO_STEPS} timed steps "
+          f"{[round(t * 1e3, 2) for t in timed]} ms; mean "
+          f"{mean_s * 1e3:.2f} ms/step ({against}: {mine['ms']:.2f}), "
+          f"{items / mean_s:.2f} items/s ({against}: "
+          f"{mine['items_s']:.2f}); peak {peak / 2**30:.2f} GiB above the "
+          f"memory held before ({against}: {mine['peak_gib']:.2f}); "
+          f"{stats['kernels']} kernels in a profiled step ({against}: "
+          f"{mine.get('kernels', 'not counted')}), {sum(ops.values())} "
+          f"operators dispatched a step; against {against} the mesh adds "
+          f"{added} of device time to a step")
+    ref = {"init": mine["init"], "losses": losses, "after1": after1,
+           "ms": mean_s * 1e3, "items_s": items / mean_s,
+           "peak_gib": peak / 2**30, "device_ms": device_ms,
+           "kernels": stats["kernels"], "ops": ops}
+    return ref, model, opt, opt_state, batch
+
+
 def phase_zoo_mesh(torch, mesh, ref):
     """Phase 5h's models through prepare_mesh's 1-rank mesh (ViT, BERT and
     T5 under tp_fsdp_rules(), the UNet under dp_rules()), initialised from
     5h's seed: the weights, each step's loss and the parameters after the
     first step against 5h's (``ref``), ms per step, items/s, peak memory
     and a step's device time beside 5h's; then t5-base's state saved and
-    resumed by both routes."""
-    from torch.distributed.fsdp import FSDPModule
-    from torch.distributed.tensor import DTensor
-
+    resumed by both routes. Returns phase 5k's reference of each model,
+    as 5h's."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import dp_rules, tp_fsdp_rules
-    from ray_tpu_torch.parallel.sharding import local
 
     _zero_counts(fa)
-    for (preset, module, cfg, make_batch, loss_fn,
-         what) in _zoo_training_cases(torch):
+    mine = {}
+    for case in _zoo_training_cases(torch):
+        preset, module, cfg, _, loss_fn, _ = case
         rules_name, rules = (("dp_rules()", dp_rules())
                              if preset == "ddpm-cifar"
                              else ("tp_fsdp_rules()", tp_fsdp_rules()))
-        mine = ref[preset]
-        items = ZOO_BATCH[preset]
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        model, params, opt, opt_state = _zoo_mesh_state(
-            torch, module, cfg, mesh, rules, 0)
-        batch = make_batch(torch.Generator(device=DEVICE).manual_seed(1))
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        check(isinstance(model, FSDPModule)
-              and all(isinstance(u, FSDPModule) for u in model.fsdp_units())
-              and all(isinstance(p, DTensor) for p in params.values()),
-              f"{preset}: the model is not placed by FSDP2 and DTensor")
-        blocks = {n: local(p) for n, p in params.items()}
-        check(torch.equal(_fingerprint(torch, blocks), mine["init"]),
-              f"{preset}: the weights initialised on the mesh differ from "
-              f"phase 5h's")
-        losses, step_s = [], []
-        for i in range(ZOO_WARMUP + ZOO_STEPS):
-            if i == ZOO_WARMUP:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            opt_state, loss = _zoo_mesh_step(torch, loss_fn, model, params,
-                                             opt, opt_state, batch, mesh,
-                                             rules)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-            if i == 0:
-                with torch.no_grad():
-                    diffs = [(local(p) - mine["after1"][n]).abs()
-                             for n, p in params.items()]
-                    n_diff = sum(int((d != 0).sum()) for d in diffs)
-                    max_diff = max(float(d.max()) for d in diffs)
-                del diffs
-        peak = torch.cuda.max_memory_allocated() - base
-        rel = [abs(a / b - 1) for a, b in zip(losses, mine["losses"])]
-        exact = preset in ZOO_MESH_EXACT
-        print(f"mesh: {preset} under {rules_name}: initialised in "
-              f"{init_s:.2f} s, weights equal to 5h's; losses "
-              f"{[round(x, 6) for x in losses]}; max rel dloss against "
-              f"5h's steps {max(rel):.3e}; after the first step "
-              f"{n_diff} parameter elements differ from 5h's, by up to "
-              f"{max_diff:.3e}")
-        if exact:
-            check(losses == mine["losses"] and n_diff == 0,
-                  f"{preset}: the mesh's steps are not 5h's bit for bit")
-        else:
-            check(losses[0] == mine["losses"][0]
-                  and max(rel) <= ZOO_MESH_LOSS_RTOL
-                  and max_diff <= 2 * ZOO_LR,
-                  f"{preset}: the mesh's losses {losses} against 5h's "
-                  f"{mine['losses']}, the first update up to {max_diff}")
-        timed = step_s[ZOO_WARMUP:]
-        mean_s = statistics.mean(timed)
-        out = {}
-
-        def profiled():
-            out["opt_state"], _ = _zoo_mesh_step(torch, loss_fn, model,
-                                                 params, opt, opt_state,
-                                                 batch, mesh, rules)
-        device_ms = _profile(
-            torch, profiled,
-            f"one training step of {preset} on the mesh, {rules_name}", 10,
-            convs=True)
-        opt_state = out.pop("opt_state")
-        added = ("not measured" if device_ms is None or mine["device_ms"]
-                 is None else f"{device_ms - mine['device_ms']:.3f} ms")
-        print(f"mesh: {preset}: {ZOO_STEPS} timed steps "
-              f"{[round(t * 1e3, 2) for t in timed]} ms; mean "
-              f"{mean_s * 1e3:.2f} ms/step (5h: {mine['ms']:.2f}), "
-              f"{items / mean_s:.2f} items/s (5h: {mine['items_s']:.2f}); "
-              f"peak {peak / 2**30:.2f} GiB above the memory held before "
-              f"(5h: {mine['peak_gib']:.2f}); the mesh adds {added} of "
-              f"device time to a step")
+        mine[preset], model, _, opt_state, batch = _zoo_mesh_run(
+            torch, mesh, case, rules_name, rules, ref[preset], "5h")
         if preset == "t5-base":
             state = {"params": model, "opt_state": opt_state,
-                     "step": torch.full((), ZOO_WARMUP + ZOO_STEPS + 1,
+                     # the timed steps, the profile's two, the count's
+                     "step": torch.full((), ZOO_WARMUP + ZOO_STEPS + 3,
                                         dtype=torch.int32, device=DEVICE)}
-            del params, model, opt_state
+            del model, opt_state
             _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch)
             del state
         else:
-            del model, params, opt_state
+            del model, opt_state
         del batch
         gc.collect()
         torch.cuda.empty_cache()
     check(_counts(fa) == (0, 0, 0), "the zoo's models launched a flash "
           "kernel on the mesh")
+    return mine
+
+
+def phase_zoo_context_parallel(torch, mesh, ref):
+    """Phase 5i's runs again, every model placed by
+    ``context_parallel_rules()`` (BERT's and T5's sequence on ``sp``, an
+    axis of one rank here; ViT's and the UNet's images never split): the
+    losses and first update against 5i's (``ref``) by 5i's bounds, the
+    operators a step dispatches equal to 5i's (over an ``sp`` of one the
+    split adds no work: every kernel is launched by one of them), ms per
+    step, items/s and peak memory beside 5i's."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import context_parallel_rules
+
+    _zero_counts(fa)
+    for case in _zoo_training_cases(torch):
+        preset = case[0]
+        mine = ref[preset]
+        got, model, _, opt_state, batch = _zoo_mesh_run(
+            torch, mesh, case, "context_parallel_rules()",
+            context_parallel_rules(), mine, "5i")
+        differ = {k: (mine["ops"][k], got["ops"][k])
+                  for k in set(mine["ops"]) | set(got["ops"])
+                  if mine["ops"][k] != got["ops"][k]}
+        for k, (a, b) in sorted(differ.items())[:20]:
+            print(f"  dispatched {k[:160]}: 5i x{a}, 5k x{b}")
+        check(not differ, f"{preset}: a step under context_parallel_rules() "
+              f"dispatches {sum(got['ops'].values())} operators, 5i's "
+              f"{sum(mine['ops'].values())}, {len(differ)} kinds differ")
+        del model, opt_state, batch, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(_counts(fa) == (0, 0, 0), "the zoo's models launched a flash "
+          "kernel under context_parallel_rules()")
 
 
 def _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch):
@@ -2833,9 +2988,9 @@ def _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch):
 
     def step(st, rules, opt):
         params = dict(st["params"].named_parameters())
-        opt_state, loss = _zoo_mesh_step(torch, loss_fn, st["params"],
-                                         params, opt, st["opt_state"], batch,
-                                         mesh, rules)
+        opt_state, loss = _zoo_mesh_step(torch, module, loss_fn,
+                                         st["params"], params, opt,
+                                         st["opt_state"], batch, mesh, rules)
         st = {**st, "opt_state": opt_state, "step": st["step"] + 1}
         return st, float(loss), _state_fingerprint(torch, st)
 
@@ -2935,7 +3090,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5i; returns the kernels line's rows."""
+    """Phases 2-5k; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -2974,7 +3129,8 @@ def _main_phases(torch):
     _timed("4e", phase_diffusion_serving, torch)
     zoo_ref = _timed("5h", phase_zoo_training, torch)
     _timed("5h (tiny)", phase_zoo_small, torch)
-    _timed("5i", phase_zoo_mesh, torch, mesh, zoo_ref)
+    zoo_ref = _timed("5i", phase_zoo_mesh, torch, mesh, zoo_ref)
+    _timed("5k", phase_zoo_context_parallel, torch, mesh, zoo_ref)
     del zoo_ref
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"

@@ -2,18 +2,22 @@
 block rematerialisation, the placing of a model on a mesh (:func:`build`,
 :func:`draw`), the lookups as ``jnp.take`` and ``jnp.take_along_axis``
 take them (the vocab-parallel embedding and cross-entropy), the losses'
-global denominators over a batch split across data ranks, and the limit
-that raise (ROADMAP.md's item 12, and the zoo's limits on a mesh).
+global denominators over a batch split across ranks, and the limit that
+raises (ROADMAP.md's item 12).
 
 A model is placed by its module's ``param_specs`` (``parallel.sharding.
 shard_model``). Inside a forward each rank then computes on its local
 ``tp`` blocks; a loss over a batch whose rows are split over the data
-axes (``parallel.mesh.registered_mesh`` makes the mesh and the rules
-current, ``parallel.collectives.batch_layout`` reads them) returns this
-rank's *share*: its own sum over the global count. Summed over the data
-ranks the shares are the global loss, as GSPMD's mean over the global
-batch; FSDP2 averages the gradients over those ranks, so a caller steps
-on ``share * batch_blocks()``, as ``parallel.train_step`` does.
+axes, and whose sequence is split over ``sp`` where the rules and the
+model's ``batch_spec`` say so (``parallel.mesh.registered_mesh`` makes
+the mesh and the rules current, ``parallel.collectives.batch_layout``
+reads them), returns this rank's *share*: its own sum over the global
+count. Summed over those ranks the shares are the global loss, as
+GSPMD's mean over the global batch; FSDP2 averages the gradients over
+the data ranks, so a caller steps on ``share * batch_blocks(batch_spec)``
+and then sums the gradients over ``sp`` (``sharding.
+average_replicated_grads`` with the model's ``batch_spec``), as
+``parallel.train_step`` does.
 """
 
 from __future__ import annotations
@@ -49,16 +53,6 @@ def check_unstacked(rules) -> None:
         raise NotImplementedError(
             f"rules.layers={rules.layers!r} (the stacked layer axis over "
             f"pipeline stages) waits for ROADMAP.md queue 1, item 12")
-
-
-def check_whole_sequence(rules) -> None:
-    """BERT and T5 take whole sequences: their attention (T5's relative
-    bias too) over a sequence split across ``sp`` is not ported."""
-    if rules.sequence is not None:
-        raise NotImplementedError(
-            f"rules.sequence={rules.sequence!r}: BERT and T5 on a sequence "
-            f"split over a mesh axis are not ported (ROADMAP.md, the zoo's "
-            f"limits on a mesh)")
 
 
 # -- placing ------------------------------------------------------------
@@ -204,38 +198,54 @@ def vocab_parallel_stats(logits, targets, vocab):
 
 # -- losses over a batch split across data ranks --------------------------
 
-def batch_groups() -> Tuple:
+def batch_groups(batch_spec) -> Tuple:
     """The axes (``AxisShard``\\ s of more than one rank) the current
-    step's batch rows are split over: those of the registered mesh and
-    rules (``parallel.mesh.registered_mesh``), none outside one. A model
-    of the zoo splits no sequence: ``rules.sequence`` raises."""
+    step's batch is split over: its rows over the rules' batch axes and,
+    where the model's ``batch_spec`` (``collectives.batch_layout``) puts
+    its sequence on ``rules.sequence``, its columns over ``sp``; none
+    outside a registered mesh (``parallel.mesh.registered_mesh``). A loss
+    divides by its count over all of them."""
     from ray_tpu_torch.parallel import collectives
-    groups, seq = collectives.batch_layout()
-    if seq is not None:
-        raise NotImplementedError(
-            "the sequence split over 'sp' (rules.sequence) is GPT's and "
-            "Llama's; the zoo's models take whole sequences")
-    return groups
+    return collectives.batch_layout(batch_spec)[0]
 
 
-def batch_blocks(groups=None) -> int:
-    """How many blocks the batch rows are split into (1 off a mesh): the
-    factor by which a step scales a loss share before FSDP2's average."""
+def batch_blocks(batch_spec) -> int:
+    """How many blocks the rows of a batch laid out by the model's
+    ``batch_spec`` are split into (1 off a mesh): the factor by which a
+    step scales a loss share before FSDP2's average over the data ranks.
+    The sequence's blocks are not among them: their gradients are summed
+    over ``sp`` (``sharding.average_replicated_grads``)."""
+    from ray_tpu_torch.parallel import collectives
+    groups, seq = collectives.batch_layout(batch_spec)
+    return _blocks(g for g in groups if g is not seq)
+
+
+def _blocks(groups) -> int:
     n = 1
-    for g in batch_groups() if groups is None else groups:
+    for g in groups:
         n *= g.size
     return n
 
 
-def batch_rows(n_local: int, groups=None) -> Tuple[int, slice]:
+def batch_rows(n_local: int, groups) -> Tuple[int, slice]:
     """(the global batch's rows, this rank's rows of it), for a block of
-    ``n_local`` rows: the blocks lie row-major over the batch axes."""
-    groups = batch_groups() if groups is None else groups
+    ``n_local`` rows split over ``groups`` (the row axes alone): the
+    blocks lie row-major over the batch axes."""
     index = 0
     for g in groups:
         index = index * g.size + g.index
-    return n_local * batch_blocks(groups), slice(index * n_local,
-                                                 (index + 1) * n_local)
+    return n_local * _blocks(groups), slice(index * n_local,
+                                            (index + 1) * n_local)
+
+
+def sequence_span(n_local: int, seq) -> Tuple[int, int]:
+    """(the global position of this rank's first of its ``n_local``
+    columns, the whole sequence's length): ``(0, n_local)`` unless the
+    step splits the sequence over ``seq`` (``collectives.batch_layout``'s
+    second value), whose ranks hold equal blocks in order."""
+    if seq is None:
+        return 0, n_local
+    return seq.index * n_local, n_local * seq.size
 
 
 def batch_sum(x, groups):
@@ -267,13 +277,14 @@ def loss_and_metrics(nll_sum, hit_sum, mask32, groups, aux=None,
 
 
 def masked_ce(logits, targets, mask: Optional[torch.Tensor], vocab=None,
-              pick_log_probs: bool = False
+              pick_log_probs: bool = False, *, batch_spec
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The zoo's fp32 cross-entropy over ``mask`` (every item when None)
-    of a batch that the current step may split over data ranks →
+    of a batch that the current step may split over data ranks, and over
+    ``sp`` where the model's ``batch_spec`` splits its sequence →
     (this rank's share, the global {"loss", "accuracy"});
     ``pick_log_probs`` as :func:`ce_stats`."""
-    groups = batch_groups()
+    groups = batch_groups(batch_spec)
     mask32 = (torch.ones(targets.shape, dtype=torch.float32,
                          device=logits.device) if mask is None
               else mask.float())

@@ -20,6 +20,15 @@ and divides by the global count of masked positions where the current
 step splits the batch over the data ranks (``models/_common.py``). The
 heads read the root's parameters outside ``forward``; they are methods
 (``Bert.mlm_logits``, ``Bert.pooled``) that FSDP2 gathers around.
+
+Under rules that put the sequence on ``sp`` (``context_parallel_rules()``;
+:func:`batch_spec` is ``("batch", "sequence")``) each rank holds a block
+of every row's columns: its positions are global, each block's queries
+attend over keys and values gathered over ``sp`` (the padding bias over
+the gathered ``attention_mask``), the pooler reads position 0 from ``sp``
+index 0, and :func:`mlm_loss` counts the masked positions over the whole
+global batch; the step sums the gradients over ``sp``
+(``sharding.average_replicated_grads`` with :func:`batch_spec`).
 """
 
 from __future__ import annotations
@@ -34,12 +43,13 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
-                                          check_whole_sequence, checkpointed,
-                                          draw, embed, masked_ce,
+                                          checkpointed, draw, embed,
+                                          masked_ce, sequence_span,
                                           wrap_ids)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.models.gpt import _empty, _layernorm
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                              from_tp, gather_tp, local, to_tp,
                                              tp_local)
@@ -115,8 +125,10 @@ class Block(nn.Module):
         self.ln2_s = _empty((d,), cfg, device)
         self.ln2_b = _empty((d,), cfg, device)
 
-    def _attention(self, x, mask_bias):
-        """On a tp mesh over this rank's heads; the output summed."""
+    def _attention(self, x, mask_bias, seq):
+        """On a tp mesh over this rank's heads; the output summed. With
+        the sequence split over ``seq``, this rank's query rows against
+        the keys and values of the whole sequence, gathered."""
         dt = self.cfg.dtype
         wq, heads = tp_local(self.wq)
         x = to_tp(x, heads)
@@ -125,8 +137,9 @@ class Block(nn.Module):
             return torch.einsum("bsd,dhk->bshk", x, local(w).to(dt)) + \
                 local(b).to(dt)
 
-        q, k, v = proj(wq, self.bq), proj(self.wk, self.bk), \
-            proj(self.wv, self.bv)
+        q = proj(wq, self.bq)
+        k, v = (collectives.gather_sum(proj(w, b), seq, 1)
+                for w, b in ((self.wk, self.bk), (self.wv, self.bv)))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / as_dtype(
             math.sqrt(self.cfg.head_dim), dt)
         logits = logits.float() + mask_bias  # fp32 softmax
@@ -136,11 +149,12 @@ class Block(nn.Module):
                                     local(self.wo).to(dt)), heads) + \
             local(self.bo).to(dt)
 
-    def forward(self, x, mask_bias):
+    def forward(self, x, mask_bias, seq=None):
         cfg = self.cfg
         dt = cfg.dtype
         # Post-LN residual order (original BERT): LN(x + sublayer(x)).
-        x = _layernorm(x + self._attention(x, mask_bias), local(self.ln1_s),
+        x = _layernorm(x + self._attention(x, mask_bias, seq),
+                       local(self.ln1_s),
                        local(self.ln1_b), cfg.layernorm_eps)
         wi, mlp = tp_local(self.wi)
         hidden = F.gelu(to_tp(x, mlp) @ wi.to(dt) + local(self.bi).to(dt),
@@ -204,21 +218,29 @@ class Bert(nn.Module):
         return self._encode(tokens, segment_ids, attention_mask)
 
     def _encode(self, tokens, segment_ids=None, attention_mask=None):
+        """Where the current step splits the sequence over ``sp``
+        (``batch_spec``), the inputs and the result are this rank's
+        columns: the positions are global and every query attends over
+        the gathered keys, padding on other ranks included."""
         cfg = self.cfg
+        seq = collectives.batch_layout(batch_spec)[1]
         S = tokens.shape[1]
+        start = sequence_span(S, seq)[0]
         if segment_ids is None:
             segment_ids = torch.zeros_like(tokens)
         if attention_mask is None:
             attention_mask = torch.ones_like(tokens)
-        x = (embed(tokens, self.wte) + local(self.wpe)[None, :S]
+        x = (embed(tokens, self.wte)
+             + local(self.wpe)[None, start:start + S]
              + _segment_rows(segment_ids, local(self.wse)))
         x = _layernorm(x.to(cfg.dtype), local(self.emb_ln_s),
                        local(self.emb_ln_b), cfg.layernorm_eps)
         # [B, 1, 1, S] additive bias: -1e9 on padding keys.
-        mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+        keys = collectives.gather_sum(attention_mask, seq, 1)
+        mask_bias = torch.where(keys[:, None, None, :] > 0, 0.0,
                                 -1e9).float()
         for block in self.blocks:
-            x = checkpointed(block, cfg.remat)(x, mask_bias)
+            x = checkpointed(block, cfg.remat)(x, mask_bias, seq)
         return x
 
     def mlm_logits(self, tokens, segment_ids=None, attention_mask=None,
@@ -239,9 +261,16 @@ class Bert(nn.Module):
         return gather_tp(logits, vocab) if whole else (logits, vocab)
 
     def pooled(self, tokens, segment_ids=None, attention_mask=None):
-        """The tanh [CLS] pooler → [B, d_model]."""
+        """The tanh [CLS] pooler → [B, d_model]. Over a sequence split
+        over ``sp``, position 0 lies on ``sp`` index 0: every rank takes
+        that rank's row and returns the same value. Each rank's loss on
+        it is its share of a sum over ``sp`` (``masked_ce`` with
+        :func:`batch_spec` counts the rows once per ``sp`` rank), so the
+        backward sums the row's gradient over ``sp`` into index 0, as
+        ``average_replicated_grads`` sums the pooler's."""
         x = self._encode(tokens, segment_ids, attention_mask)
-        cls = x[:, 0].float()
+        seq = collectives.batch_layout(batch_spec)[1]
+        cls = collectives.gather_sum(x[:, :1], seq, 1)[:, 0].float()
         return torch.tanh(cls @ local(self.pooler_w).float()
                           + local(self.pooler_b).float())
 
@@ -277,7 +306,7 @@ def mlm_loss(model: Bert, tokens, targets, mask_positions,
     logits, vocab = model.mlm_logits(tokens, attention_mask=attention_mask,
                                      whole=False)
     return masked_ce(logits, targets, mask_positions, vocab,
-                     pick_log_probs=True)[0]
+                     pick_log_probs=True, batch_spec=batch_spec)[0]
 
 
 # -- parameters ---------------------------------------------------------
@@ -320,14 +349,6 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
     return rules.spec("batch", "sequence")
 
 
-def _build(cfg, device, mesh, rules) -> Bert:
-    """:func:`build`, after the check that the rules keep the sequence
-    whole."""
-    if mesh is not None and rules is not None:
-        check_whole_sequence(rules)
-    return build(Bert, param_specs, cfg, device, mesh, rules)
-
-
 def init(cfg: BertConfig, generator: torch.Generator,
          device: DeviceLike = None, mesh=None,
          rules: Optional[ShardingRules] = None) -> Bert:
@@ -339,7 +360,7 @@ def init(cfg: BertConfig, generator: torch.Generator,
     holds the same global values."""
     normal = dict.fromkeys(("wte", "wpe", "wse", "pooler_w", "mlm_w", "wq",
                             "wk", "wv", "wo", "wi", "wo_ff"), 0.02)
-    return draw(_build(cfg, device, mesh, rules),
+    return draw(build(Bert, param_specs, cfg, device, mesh, rules),
                 generator, normal,
                 lambda leaf: 1.0 if leaf.endswith("_s") else 0.0)
 
@@ -352,7 +373,7 @@ def from_jax_params(params: Dict[str, Any], cfg: BertConfig,
     leaves and layers stacked on a leading ``[L, ...]`` axis. With
     ``mesh`` the model is placed as :func:`init` places it."""
     return load_jax_params(
-        _build(cfg, device, mesh, rules), params)
+        build(Bert, param_specs, cfg, device, mesh, rules), params)
 
 
 __all__ = ["Bert", "BertConfig", "Block", "PRESETS", "batch_spec", "config",

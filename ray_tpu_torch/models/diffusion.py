@@ -430,11 +430,12 @@ def loss_fn(model: UNet, images, generator: Optional[torch.Generator] = None,
     when given) are this rank's rows: ``t`` and ``eps`` are drawn for the
     whole global batch, every rank alike, and this rank keeps its rows;
     the first value is this rank's share (its mean over the count of
-    blocks) and the metric the global batch's loss."""
+    blocks) and the metric the global batch's loss. Ranks over ``sp``
+    hold the same rows (an image has no sequence) and return the same."""
     cfg = model.cfg
     dev = images.device
     alphas_bar = torch.from_numpy(_schedule(cfg)[1]).to(dev)
-    groups = batch_groups()
+    groups = batch_groups(batch_spec)
     B, rows = batch_rows(images.shape[0], groups)
     if t is None:
         t = torch.randint(0, cfg.n_timesteps, (B,), generator=generator,

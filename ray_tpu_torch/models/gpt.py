@@ -52,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import (build, ce_stats, check_unstacked,
-                                          draw, embed, loss_and_metrics)
+                                          draw, embed, loss_and_metrics,
+                                          sequence_span)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.ops import ring_attention as ring
@@ -254,7 +255,7 @@ def _sequence_parallel_attention(q, k, v, impl: str):
             f"attn_impl={impl!r} needs a registered mesh with an 'sp' axis "
             f"(parallel.mesh.registered_mesh; make_train_step/"
             f"make_eval_step do this automatically)")
-    split = collectives.batch_layout()[1] is not None
+    split = collectives.batch_layout(batch_spec)[1] is not None
     if impl == "ring":
         if split:
             return ring.ring_attention(q, k, v, "sp", True, mesh)
@@ -277,7 +278,7 @@ def _dispatch_attention(q, k, v, cfg, local_attention):
     _check_local_heads(q, k, cfg)
     if cfg.attn_impl in ("ring", "ulysses"):
         return _sequence_parallel_attention(q, k, v, cfg.attn_impl)
-    seq = collectives.batch_layout()[1]
+    seq = collectives.batch_layout(batch_spec)[1]
     if seq is None:
         return local_attention(q, k, v, cfg)
     S = q.shape[1]
@@ -559,7 +560,7 @@ def _moe_route(cfg: GPTConfig, h, block: Block):
     B, S, d = h.shape
     E = cfg.n_experts
     K = min(cfg.expert_top_k, E)
-    groups, seq = collectives.batch_layout()
+    groups, seq = collectives.batch_layout(batch_spec)
     C = max(1, int(cfg.capacity_factor * S * (seq.size if seq else 1) * K
                    / E))
 
@@ -665,8 +666,7 @@ def _positions(tokens):
     the step splits the sequence over ``sp`` (this rank holds block
     ``index`` of it)."""
     B, S = tokens.shape
-    seq = collectives.batch_layout()[1]
-    start = 0 if seq is None else seq.index * S
+    start = sequence_span(S, collectives.batch_layout(batch_spec)[1])[0]
     return (start + torch.arange(S, device=tokens.device)).expand(B, S)
 
 

@@ -22,6 +22,18 @@ divides by the global count of targets where the current step splits the
 batch over the data ranks (``models/_common.py``). ``encode`` and
 ``decode`` read the root's parameters; they are methods that FSDP2
 gathers around, as ``forward``.
+
+Under rules that put the sequence on ``sp`` (``context_parallel_rules()``;
+:func:`batch_spec` is ``("batch", "sequence")``, for the encoder's tokens
+and the decoder's alike, whose lengths may differ) each rank holds a
+block of every row's columns: self-attention takes its query rows against
+keys and values gathered over ``sp``, with the relative buckets and the
+decoder's causal mask at the rows' global positions; cross-attention
+takes them against the encoder's output gathered over ``sp``;
+:func:`loss_fn` counts the targets over the whole global batch. ``encode``,
+``decode`` and ``forward`` return this rank's rows, and the step sums the
+gradients over ``sp`` (``sharding.average_replicated_grads`` with
+:func:`batch_spec`).
 """
 
 from __future__ import annotations
@@ -37,11 +49,12 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import (as_dtype, build, check_unstacked,
-                                          check_whole_sequence, checkpointed,
-                                          draw, embed, masked_ce)
+                                          checkpointed, draw, embed,
+                                          masked_ce, sequence_span)
 from ray_tpu_torch.models._params import (leaf_groups, load_jax_params,
                                           to_jax_params)
 from ray_tpu_torch.models.gpt import _empty
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                              from_tp, gather_tp, local, to_tp,
                                              tp_local)
@@ -125,26 +138,32 @@ def _relative_buckets(rel_pos, bidirectional: bool, num_buckets: int,
 
 
 @functools.lru_cache(maxsize=32)
-def _bucket_table(q_len: int, k_len: int, bidirectional: bool,
+def _bucket_table(q_start: int, q_len: int, k_len: int, bidirectional: bool,
                   num_buckets: int, max_distance: int,
                   device: torch.device) -> torch.Tensor:
-    """The ``[Q, K]`` buckets, computed on the CPU, on ``device``; a plain
-    tensor even when first asked for under ``inference_mode``, so that a
-    later forward that records gradients may index with it."""
+    """The ``[Q, K]`` buckets of the queries at positions ``q_start ..
+    q_start + Q - 1`` against the keys at ``0 .. K - 1``, computed on the
+    CPU, on ``device``; a plain tensor even when first asked for under
+    ``inference_mode``, so that a later forward that records gradients
+    may index with it."""
     with torch.inference_mode(False):
-        rel = torch.arange(q_len)[:, None] - torch.arange(k_len)[None, :]
+        rel = (q_start + torch.arange(q_len))[:, None] - \
+            torch.arange(k_len)[None, :]
         buckets = _relative_buckets(rel, bidirectional, num_buckets,
                                     max_distance)
         return buckets.long().to(device)
 
 
-def _rel_bias(table, q_len: int, k_len: int, bidirectional: bool,
-              cfg: T5Config):
-    """[1, H, Q, K] in the compute dtype; on a tp mesh this rank's heads
-    (the table's columns)."""
+def _rel_bias(table, q_len: int, seq, bidirectional: bool, cfg: T5Config):
+    """[1, H, Q, K] in the compute dtype for this rank's ``Q`` query rows
+    against the whole sequence: on a tp mesh this rank's heads (the
+    table's columns); where the sequence is split over ``seq``, the rows
+    at their global positions and ``K = Q * seq.size``."""
     table = local(table)
-    buckets = _bucket_table(q_len, k_len, bidirectional, cfg.rel_pos_buckets,
-                            cfg.rel_pos_max_distance, table.device)
+    start, k_len = sequence_span(q_len, seq)
+    buckets = _bucket_table(start, q_len, k_len, bidirectional,
+                            cfg.rel_pos_buckets, cfg.rel_pos_max_distance,
+                            table.device)
     bias = table[buckets]  # [Q, K, H]
     return bias.permute(2, 0, 1)[None].to(cfg.dtype)  # [1, H, Q, K]
 
@@ -162,17 +181,22 @@ class Attention(nn.Module):
             setattr(self, name, _empty((d, h, hd), cfg, device))
         self.wo = _empty((h, hd, d), cfg, device)
 
-    def forward(self, q_in, kv_in, bias=None, causal: bool = False):
+    def forward(self, q_in, kv_in, bias=None, causal: bool = False,
+                seq=None):
         """On a tp mesh over this rank's heads (``bias`` over the same);
-        the output summed. Self-attention passes ``q_in`` as ``kv_in``."""
+        the output summed. Self-attention passes ``q_in`` as ``kv_in``;
+        with ``seq`` (its sequence split over ``sp``) its keys and values
+        are gathered over the axis and the queries are this rank's rows,
+        at their global positions for the causal mask."""
         dt = self.cfg.dtype
         wq, heads = tp_local(self.wq)
         self_attn = kv_in is q_in
         q_in = to_tp(q_in, heads)
         kv_in = q_in if self_attn else to_tp(kv_in, heads)
         q = torch.einsum("bsd,dhk->bshk", q_in, wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", kv_in, local(self.wk).to(dt))
-        v = torch.einsum("bsd,dhk->bshk", kv_in, local(self.wv).to(dt))
+        k, v = (collectives.gather_sum(torch.einsum(
+            "bsd,dhk->bshk", kv_in, local(w).to(dt)), seq, 1)
+            for w in (self.wk, self.wv))
         # The JAX package applies 1/sqrt(head_dim) explicitly (upstream T5
         # folds it into wq's init).
         scale = as_dtype(1.0 / math.sqrt(q.shape[-1]), dt)
@@ -182,7 +206,8 @@ class Attention(nn.Module):
         if causal:
             Q, K = logits.shape[-2], logits.shape[-1]
             keep = torch.ones((Q, K), dtype=torch.bool,
-                              device=logits.device).tril()
+                              device=logits.device)
+            keep = keep.tril(sequence_span(Q, seq)[0])
             logits = torch.where(keep, logits, -1e30)
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -210,10 +235,10 @@ class EncoderBlock(nn.Module):
         up = x @ local(self.wi_1).to(dt)
         return from_tp((gate * up) @ local(self.wo_ff).to(dt), mlp)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, seq=None):
         eps = self.cfg.layernorm_eps
         h = _rmsnorm(x, local(self.ln1), eps)
-        x = x + self.attn(h, h, bias=bias)
+        x = x + self.attn(h, h, bias=bias, seq=seq)
         return x + self._ffn(_rmsnorm(x, local(self.ln2), eps))
 
 
@@ -223,10 +248,12 @@ class DecoderBlock(EncoderBlock):
         self.ln3 = _empty((cfg.d_model,), cfg, device)
         self.cross = Attention(cfg, device)
 
-    def forward(self, x, enc_out, bias):
+    def forward(self, x, enc_out, bias, seq=None):
+        """``enc_out`` is the whole encoder sequence (gathered over
+        ``sp`` where the step splits it)."""
         eps = self.cfg.layernorm_eps
         h = _rmsnorm(x, local(self.ln1), eps)
-        x = x + self.attn(h, h, bias=bias, causal=True)
+        x = x + self.attn(h, h, bias=bias, causal=True, seq=seq)
         x = x + self.cross(_rmsnorm(x, local(self.ln3), eps), enc_out)
         return x + self._ffn(_rmsnorm(x, local(self.ln2), eps))
 
@@ -280,21 +307,25 @@ class T5(nn.Module):
 
     def _encode(self, tokens):
         cfg = self.cfg
+        seq = collectives.batch_layout(batch_spec)[1]
         x = embed(tokens, self.wte).to(cfg.dtype)
-        S = tokens.shape[1]
-        bias = _rel_bias(self.enc_rel_bias, S, S, True, cfg)
+        bias = _rel_bias(self.enc_rel_bias, tokens.shape[1], seq, True, cfg)
         for block in self.encoder:
-            x = checkpointed(block, cfg.remat)(x, bias)
+            x = checkpointed(block, cfg.remat)(x, bias, seq)
         return _rmsnorm(x, local(self.enc_final_ln), cfg.layernorm_eps)
 
     def _decode(self, enc_out, decoder_tokens):
         cfg = self.cfg
         dt = cfg.dtype
+        seq = collectives.batch_layout(batch_spec)[1]
+        # The encoder's output is split like its tokens: each decoder row
+        # attends over all of it.
+        enc_out = collectives.gather_sum(enc_out, seq, 1)
         x = embed(decoder_tokens, self.wte).to(dt)
-        Sd = decoder_tokens.shape[1]
-        self_bias = _rel_bias(self.dec_rel_bias, Sd, Sd, False, cfg)
+        self_bias = _rel_bias(self.dec_rel_bias, decoder_tokens.shape[1],
+                              seq, False, cfg)
         for block in self.decoder:
-            x = checkpointed(block, cfg.remat)(x, enc_out, self_bias)
+            x = checkpointed(block, cfg.remat)(x, enc_out, self_bias, seq)
         x = _rmsnorm(x, local(self.dec_final_ln), cfg.layernorm_eps)
         # Tied embedding head with T5's rescale.
         x = x * as_dtype(cfg.d_model ** -0.5, dt)
@@ -324,7 +355,7 @@ def loss_fn(model: T5, encoder_tokens, decoder_tokens, targets, mask=None
     the first value is this rank's share (its sum over the global count
     of targets) and the metrics are the global batch's."""
     logits, vocab = model(encoder_tokens, decoder_tokens, whole=False)
-    return masked_ce(logits, targets, mask, vocab)
+    return masked_ce(logits, targets, mask, vocab, batch_spec=batch_spec)
 
 
 # -- parameters ---------------------------------------------------------
@@ -360,14 +391,6 @@ def batch_spec(rules: ShardingRules) -> PartitionSpec:
     return rules.spec("batch", "sequence")
 
 
-def _build(cfg, device, mesh, rules) -> T5:
-    """:func:`build`, after the check that the rules keep the sequence
-    whole."""
-    if mesh is not None and rules is not None:
-        check_whole_sequence(rules)
-    return build(T5, param_specs, cfg, device, mesh, rules)
-
-
 def init(cfg: T5Config, generator: torch.Generator,
          device: DeviceLike = None, mesh=None,
          rules: Optional[ShardingRules] = None) -> T5:
@@ -380,7 +403,7 @@ def init(cfg: T5Config, generator: torch.Generator,
     std = 1.0 / math.sqrt(cfg.d_model)
     normal = dict.fromkeys(("wte", "enc_rel_bias", "dec_rel_bias", "wq",
                             "wk", "wv", "wo", "wi_0", "wi_1", "wo_ff"), std)
-    return draw(_build(cfg, device, mesh, rules), generator,
+    return draw(build(T5, param_specs, cfg, device, mesh, rules), generator,
                 normal, lambda leaf: 1.0)
 
 
@@ -391,7 +414,7 @@ def from_jax_params(params: Dict[str, Any], cfg: T5Config,
     nested dict that ``ray_tpu.models.t5.init`` returns, with numpy leaves
     and each stack's layers on a leading ``[L, ...]`` axis. With ``mesh``
     the model is placed as :func:`init` places it."""
-    return load_jax_params(_build(cfg, device, mesh, rules),
+    return load_jax_params(build(T5, param_specs, cfg, device, mesh, rules),
                            params)
 
 

@@ -228,9 +228,11 @@ def loss_fn(model: ViT, images, labels
     {"loss", "accuracy"}). Where the current step splits the batch over
     data ranks (``parallel.mesh.registered_mesh``), ``images`` and
     ``labels`` are this rank's rows, the first value is this rank's share
-    of the global mean and the metrics are the global batch's."""
+    of the global mean and the metrics are the global batch's. An image
+    has no sequence to split: ranks over ``sp`` hold the same rows and
+    return the same share."""
     logits, classes = model(images, whole=False)
-    return masked_ce(logits, labels, None, classes)
+    return masked_ce(logits, labels, None, classes, batch_spec=batch_spec)
 
 
 # -- parameters ---------------------------------------------------------

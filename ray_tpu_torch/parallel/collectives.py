@@ -43,25 +43,34 @@ from ray_tpu_torch.parallel.sharding import AxisShard, _alone
 def axis_shard(mesh, axis: str) -> Optional[AxisShard]:
     """The mesh axis ``axis`` at this rank, or None when the mesh has no
     such axis or it has one rank."""
-    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+    names = (mesh.mesh_dim_names or ()) if mesh is not None else ()
+    if axis not in names:
         return None
-    size = mesh[axis].size()
+    # The size from the mesh's shape: slicing the mesh runs tensor ops.
+    size = mesh.size(names.index(axis))
     if size == 1:
         return None
     return AxisShard(mesh.get_group(axis), mesh.get_local_rank(axis), size)
 
 
-def batch_layout() -> Tuple[Tuple[AxisShard, ...], Optional[AxisShard]]:
+def batch_layout(batch_spec
+                 ) -> Tuple[Tuple[AxisShard, ...], Optional[AxisShard]]:
     """How the current step's batch lies on the current mesh (both
-    registered by ``parallel.mesh.set_current_mesh``): (the axes of more
+    registered by ``parallel.mesh.registered_mesh``): (the axes of more
     than one rank its rows and columns are split over, the axis its
-    columns — the sequence — are split over or None). Nothing is split
+    columns — the sequence — are split over or None). ``batch_spec`` is
+    the model module's (``rules -> PartitionSpec``): GPT's, Llama's,
+    BERT's and T5's put dim 1 on ``rules.sequence``; ViT's and the
+    UNet's leave it whole, so they split no sequence and their rows are
+    replicated over ``sp``, as GSPMD replicates them. Nothing is split
     when no mesh or no rules are registered."""
     mesh, rules = current_mesh(), current_rules()
     if mesh is None or rules is None:
         return (), None
-    rows = [axis_shard(mesh, a) for a in _spec_axes(rules.batch)]
-    seq = [axis_shard(mesh, a) for a in _spec_axes(rules.sequence)]
+    spec = batch_spec(rules)
+    rows = [axis_shard(mesh, a) for a in _spec_axes(spec[0])]
+    seq = [axis_shard(mesh, a)
+           for a in _spec_axes(spec[1] if len(spec) > 1 else None)]
     if len(seq) > 1:
         raise NotImplementedError(f"sequence rule {rules.sequence!r}: the "
                                   f"port splits the sequence over one axis")

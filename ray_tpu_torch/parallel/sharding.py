@@ -309,12 +309,35 @@ def shard_model(model: nn.Module, mesh, specs: Dict[str, Any]) -> nn.Module:
     return model
 
 
-def average_replicated_grads(params) -> None:
+def average_replicated_grads(params, batch_spec) -> None:
     """Average over the data axes the gradients of the parameters that
     :func:`shard_model` left out of FSDP2 (replicated over ``fsdp``), as
-    FSDP2 averages the others in the backward."""
+    FSDP2 averages the others in the backward. Then, where the current
+    step (``parallel.mesh.registered_mesh``) splits the sequence of a
+    batch laid out by ``batch_spec`` (the model module's: GPT's, Llama's,
+    BERT's and T5's put it on ``rules.sequence``; ViT's and the UNet's
+    never split it, their rows are replicated over ``sp``), sum every
+    gradient over ``sp``: each rank's gradient is its own columns' part,
+    and every parameter is replicated over ``sp``. That sum is one
+    all-reduce of the local blocks flattened into one buffer. Called
+    outside ``registered_mesh`` on parameters placed on a mesh whose
+    ``sp`` has more than one rank, it raises ``RuntimeError``: it cannot
+    tell there whether the sequence was split."""
     from torch.distributed.tensor import DTensor, Replicate
 
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel.mesh import current_rules
+
+    params = list(params)
+    if current_rules() is None:
+        for p in params:
+            if isinstance(p, DTensor) and _sp_size(p.device_mesh) > 1:
+                raise RuntimeError(
+                    "average_replicated_grads: the parameters lie on a mesh "
+                    "whose sp has more than one rank; call it inside "
+                    "parallel.mesh.registered_mesh(mesh, rules), as the "
+                    "loss, so that the gradients of a model whose sequence "
+                    "is split are summed over sp")
     for p in params:
         if not isinstance(p, DTensor) or p.grad is None:
             continue
@@ -326,6 +349,22 @@ def average_replicated_grads(params) -> None:
             for axis in ("dp", "fsdp"):
                 dist.all_reduce(grad, group=mesh.get_group(axis))
             grad.div_(mesh["dp"].size() * mesh["fsdp"].size())
+    seq = collectives.batch_layout(batch_spec)[1]
+    blocks = [local(p.grad) for p in params if p.grad is not None]
+    if seq is None or not blocks:
+        return
+    flat = torch.cat([b.reshape(-1) for b in blocks])
+    dist.all_reduce(flat, group=seq.group)
+    for b, part in zip(blocks, flat.split([b.numel() for b in blocks])):
+        b.copy_(part.view_as(b))
+
+
+def _sp_size(mesh) -> int:
+    """The ranks of ``sp`` on the mesh that ``mesh`` (a parameter's, a
+    slice of the mesh it was placed on) was sliced from."""
+    root = mesh._get_root_mesh()
+    names = root.mesh_dim_names or ()
+    return root.size(names.index("sp")) if "sp" in names else 1
 
 
 def local_block(full: torch.Tensor, param) -> torch.Tensor:

@@ -21,7 +21,8 @@ block of ``B`` by ``gpt.batch_spec`` (and of ``S`` over ``sp`` when
 global mask count and is scaled by the count of batch blocks, so the
 data ranks' average of gradients (FSDP2's reduction) is the global
 batch's gradient; where the sequence is split, the gradients are then
-summed over ``sp`` (every parameter is replicated over it). The metrics
+summed over ``sp`` (every parameter is replicated over it), by
+``sharding.average_replicated_grads``, as a zoo step sums them. The metrics
 are the global ones. Ranks over ``ep`` and ``pp`` see the same rows.
 """
 
@@ -30,7 +31,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt
@@ -110,18 +110,6 @@ class _Batching:
         length of a step (the models' attention, positions and MoE layers
         read them), then restore what was current before."""
         return registered_mesh(self.mesh, self.rules)
-
-    def sum_over_sequence(self, grads) -> None:
-        """Sum each gradient's local block over ``sp``, where the sequence
-        is split (each rank's holds its own columns' part): one all-reduce
-        of the blocks flattened into one buffer."""
-        if self.seq is None:
-            return
-        blocks = [local(g) for g in grads]
-        flat = torch.cat([b.reshape(-1) for b in blocks])
-        dist.all_reduce(flat, group=self.seq.group)
-        for b, part in zip(blocks, flat.split([b.numel() for b in blocks])):
-            b.copy_(part.view_as(b))
 
     def local(self, batch: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
@@ -220,9 +208,8 @@ def make_train_step(cfg: gpt.GPTConfig, mesh=None, rules=None,
             # average is the global batch's gradient.
             (loss * batching.blocks).backward()
             metrics = {k: metrics[k] + m[k] for k in METRICS}
-        average_replicated_grads(params.values())
+        average_replicated_grads(params.values(), gpt.batch_spec)
         grads = [p.grad for p in params.values()]
-        batching.sum_over_sequence(grads)
         for p in params.values():
             p.grad = None
         return grads, metrics

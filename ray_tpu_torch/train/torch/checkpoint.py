@@ -14,9 +14,11 @@ run either package saved, the other resumes.
 
 **Save** (:func:`save_train_state`, on every rank): each rank lays out
 its own blocks (``to_local()``, never the whole tensor) with their JAX
-specs and the mesh's axes in ``AXIS_ORDER``, writes its shard, and sends
-the shard's record to rank 0 over the process group; rank 0 commits the
-manifest through its ``CheckpointManager`` only when every rank's write
+specs and the mesh's axes in ``AXIS_ORDER``, writes its shard (a replica
+over ``dp``, ``sp`` or ``pp`` leaves it to its twin at index 0, which
+holds the same blocks), and sends the shard's record to rank 0 over the
+process group; rank 0 commits the manifest, which lists a shard for
+every rank, through its ``CheckpointManager`` only when every write
 succeeded. The process group carries the acks that the trainer's result
 channel carries in the JAX package; the trainer's gang waits for the
 task/actor runtime (``ROADMAP.md`` queue 1, item 7).
@@ -154,6 +156,21 @@ def _check_blocks(flat, specs, axes, rank, model) -> Dict[str, Tuple]:
     return shapes
 
 
+def _writer(rank: int, axes, specs) -> int:
+    """The rank that writes ``rank``'s shard: the one at index 0 of every
+    axis that no leaf's spec in ``specs`` (``normalize_spec``'s) names, a
+    replica axis (``dp``, ``sp`` and ``pp`` as the port places parameters
+    and so their optimizer state), and at ``rank``'s index of the others.
+    Its blocks are ``rank``'s, so each is written once, not once per
+    replica."""
+    named = {a for spec in specs.values() for dim in spec for a in dim}
+    coords = sc.rank_coords(rank, axes)
+    writer = 0
+    for axis, size in axes:
+        writer = writer * size + (coords[axis] if axis in named else 0)
+    return writer
+
+
 def save_train_state(state: Dict[str, Any],
                      manager: Optional[CheckpointManager] = None,
                      mesh=None, rules: Optional[ShardingRules] = None,
@@ -184,11 +201,15 @@ def save_train_state(state: Dict[str, Any],
     run, seq = ctx[0]["run"], ctx[0]["seq"]
     backend = (manager._backend if rank == 0
                else spill.backend_for_uri(ctx[0]["uri"]))
+    writer = _writer(rank, axes, specs)
     try:
-        record = sc.write_shard(backend, run, seq, rank,
-                                {p: t.numpy() for p, t in flat.items()})
-        # The rank's whole share: the layout on the host and the write.
-        record["write_s"] = time.perf_counter() - t0
+        if writer != rank:
+            record = {"seq": seq, "rank": rank, "written_by": writer}
+        else:
+            record = sc.write_shard(backend, run, seq, rank,
+                                    {p: t.numpy() for p, t in flat.items()})
+            # The rank's whole share: the layout on the host and the write.
+            record["write_s"] = time.perf_counter() - t0
     except spill.SpillFailure as exc:
         record = {"seq": seq, "rank": rank, "error": str(exc)}
     del flat
@@ -209,8 +230,10 @@ def save_train_state(state: Dict[str, Any],
 
 def _commit(manager, seq, records, shapes, specs, structure, axes, extra,
             metrics) -> Optional[str]:
-    """Phase two on rank 0: the manifest iff every rank wrote its shard;
-    returns its URI or None."""
+    """Phase two on rank 0: the manifest iff every rank's shard was
+    written; returns its URI or None. A rank whose shard another wrote
+    (:func:`_writer`) is listed with that shard's file and blocks, so the
+    manifest names a shard for every rank, as the JAX package's does."""
     errors = {r["rank"]: r["error"] for r in records if "error" in r}
     if errors:
         logger.warning("sharded save seq=%d not committed: shard write "
@@ -218,6 +241,8 @@ def _commit(manager, seq, records, shapes, specs, structure, axes, extra,
                        next(iter(errors.values())))
         builtin_metrics.train_checkpoint_persist_failures().inc()
         return None
+    records = [dict(records[r["written_by"]], rank=r["rank"])
+               if "written_by" in r else r for r in records]
     # build_tree_meta reads each leaf's shape and dtype only: zero-stride
     # stand-ins of the whole leaves.
     dtypes = {p: np.dtype(b["dtype"])

@@ -276,9 +276,10 @@ def remat_grads(preset, overrides, mesh_cfg, rules_name, params0, batch):
             fa._flash_forward_reference = plain
         out["k1_runs"][policy] = len(runs)
         params = dict(model.named_parameters())
-        sharding.average_replicated_grads(params.values())
+        with batching.registered():
+            sharding.average_replicated_grads(params.values(),
+                                              gpt.batch_spec)
         grads = [p.grad for p in params.values()]
-        batching.sum_over_sequence(grads)
         out[policy] = {n: sharding.local(g).numpy().copy()
                        for n, g in zip(params, grads)}
     return out
@@ -568,11 +569,16 @@ def moe_layer(mesh_cfg, rules_name, overrides, params0, h):
 # A zoo model's case names its module ("vit", "bert", "t5", "diffusion")
 # and its rules (a preset's name, or ShardingRules' fields as a dict); the
 # batch is a tuple of numpy arrays, the global batch, of which each rank
-# takes its rows over the rules' batch axes.
+# takes its block by the model's batch_spec: its rows over the rules'
+# batch axes and, for BERT and T5 under rules.sequence, its columns over
+# sp.
 
 def _zoo(name):
+    """The module of a zoo case: "bert-pooled" is BERT with a classifier's
+    loss on its pooler (``_zoo_loss``)."""
     from ray_tpu_torch.models import bert, diffusion, t5, vit
-    return {"vit": vit, "bert": bert, "t5": t5, "diffusion": diffusion}[name]
+    return {"vit": vit, "bert": bert, "bert-pooled": bert, "t5": t5,
+            "diffusion": diffusion}[name]
 
 
 def _zoo_rules(rules):
@@ -580,17 +586,24 @@ def _zoo_rules(rules):
     return _rules(rules) if isinstance(rules, str) else ShardingRules(**rules)
 
 
-def _zoo_rows(mesh, rules, arrays):
-    """This rank's rows of each array (of the global batch), as tensors,
-    and (start, stop) of them."""
+def _zoo_rows(name, mesh, rules, arrays):
+    """This rank's block of each array (of the global batch) by the
+    model's batch_spec, its first ``ndim`` entries, as ``jax.device_put``
+    places it (``collectives.split_by_spec``, which raises
+    ValueError where a dim does not divide), as tensors, and (start,
+    stop) of its rows."""
     import torch
 
+    from ray_tpu_torch.parallel import collectives
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.parallel.sharding import PartitionSpec, shard_slices
-    rows = shard_slices((arrays[0].shape[0],), PartitionSpec(rules.batch),
+    spec = _zoo(name).batch_spec(rules)
+    rows = shard_slices((arrays[0].shape[0],), PartitionSpec(spec[0]),
                         mesh_sizes(mesh), _coords(mesh))[0]
-    return ([torch.from_numpy(np.ascontiguousarray(a[rows])) for a in arrays],
-            (rows.start, rows.stop))
+    return ([collectives.split_by_spec(
+        torch.from_numpy(np.ascontiguousarray(a)), mesh,
+        spec[:a.ndim]).contiguous()
+        for a in arrays], (rows.start, rows.stop))
 
 
 def _zoo_forward_fn(name):
@@ -608,9 +621,17 @@ def _zoo_loss(name, model, batch, seed):
     """This rank's share of the loss of its rows of the batch; the UNet
     draws t and eps from a generator seeded with ``seed``."""
     import torch
+
+    from ray_tpu_torch.models import _common
     m = _zoo(name)
     if name == "bert":
         return m.mlm_loss(model, *batch)
+    if name == "bert-pooled":
+        # The pooler's d_model outputs as the logits of as many classes.
+        tokens, labels, attn = batch
+        return _common.masked_ce(m.pooled(model, tokens,
+                                          attention_mask=attn),
+                                 labels, None, batch_spec=m.batch_spec)[0]
     if name == "diffusion":
         return m.loss_fn(model, batch[0],
                          torch.Generator().manual_seed(seed))[0]
@@ -618,12 +639,13 @@ def _zoo_loss(name, model, batch, seed):
 
 
 def _zoo_step(name, mesh, rules, model, opt, opt_state, batch, seed):
-    """One step on the mesh, as a user composes it: the loss in
-    registered_mesh, backward (FSDP2 averages over the data ranks, so the
-    share is scaled by the count of batch blocks), the replicated
-    parameters' gradients averaged, AdamW's update → (opt_state, the
-    global loss, this rank's gradient blocks, the gradients' global
-    norm)."""
+    """One step on the mesh, as a user composes it: in registered_mesh
+    the loss, backward (FSDP2 averages over the data ranks, so the share
+    is scaled by the count of batch blocks), the replicated parameters'
+    gradients averaged and, where the model splits its sequence, every
+    gradient summed over sp (``average_replicated_grads`` with the
+    model's batch_spec); AdamW's update → (opt_state, the global loss,
+    this rank's gradient blocks, the gradients' global norm)."""
     import torch
 
     from ray_tpu_torch.models import _common
@@ -632,12 +654,13 @@ def _zoo_step(name, mesh, rules, model, opt, opt_state, batch, seed):
     from ray_tpu_torch.parallel.sharding import (average_replicated_grads,
                                                  local)
     params = dict(model.named_parameters())
+    spec = _zoo(name).batch_spec
     with registered_mesh(mesh, rules):
         share = _zoo_loss(name, model, batch, seed)
-        (share * _common.batch_blocks()).backward()
+        (share * _common.batch_blocks(spec)).backward()
         loss = _common.batch_sum(share.detach(), [
-            g.group for g in _common.batch_groups()])
-    average_replicated_grads(params.values())
+            g.group for g in _common.batch_groups(spec)])
+        average_replicated_grads(params.values(), spec)
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in params.items()}
     blocks = {n: local(g).detach().numpy().copy() for n, g in grads.items()}
@@ -664,18 +687,26 @@ def _zoo_adamw(lr):
 
 def zoo_forward(name, preset, mesh_cfg, rules, params0, inputs):
     """The zoo model placed by from_jax_params on the mesh: the forward
-    of this rank's rows of ``inputs``, and this rank's parameter blocks."""
+    of this rank's block of ``inputs`` (BERT's pooler too), and this
+    rank's parameter blocks."""
     import torch
+
+    from ray_tpu_torch.parallel.mesh import registered_mesh
     mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
     m = _zoo(name)
     model = m.from_jax_params(params0, m.config(preset), "cpu", mesh=mesh,
                               rules=rules)
-    xs, rows = _zoo_rows(mesh, rules, inputs)
-    with torch.no_grad():
-        out = _zoo_forward_fn(name)(model, *xs)
+    xs, rows = _zoo_rows(name, mesh, rules, inputs)
+    out = {"coords": _coords(mesh), "rows": rows}
+    # In registered_mesh: the models read how the batch lies (BERT and T5
+    # their sequence over sp).
+    with torch.no_grad(), registered_mesh(mesh, rules):
+        out["out"] = _zoo_forward_fn(name)(model, *xs).numpy()
+        if name == "bert":
+            out["pooled"] = m.pooled(model, xs[0],
+                                     attention_mask=xs[1]).numpy()
     model.reshard()  # with no backward to follow, the root stays gathered
-    return {"coords": _coords(mesh), "rows": rows, "out": out.numpy(),
-            "params": _locals(model)}
+    return {**out, "params": _locals(model)}
 
 
 def zoo_train(name, preset, mesh_cfg, rules, params0, batches, lr, seed):
@@ -690,7 +721,7 @@ def zoo_train(name, preset, mesh_cfg, rules, params0, batches, lr, seed):
     opt_state = opt.init(dict(model.named_parameters()), m.leaf_groups(model))
     losses, grads, norms = [], None, []
     for i, batch in enumerate(batches):
-        xs, rows = _zoo_rows(mesh, rules, batch)
+        xs, rows = _zoo_rows(name, mesh, rules, batch)
         opt_state, loss, g, norm = _zoo_step(name, mesh, rules, model, opt,
                                              opt_state, xs, seed + i)
         losses.append(loss)
@@ -748,7 +779,7 @@ def zoo_ckpt_save(name, preset, mesh_cfg, rules, params0, batches, lr,
     mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
     state, opt = _zoo_state(name, preset, mesh, rules, lr, params0)
     for i, batch in enumerate(batches):
-        xs, _ = _zoo_rows(mesh, rules, batch)
+        xs, _ = _zoo_rows(name, mesh, rules, batch)
         state["opt_state"], _, _, _ = _zoo_step(
             name, mesh, rules, state["params"], opt, state["opt_state"], xs,
             i)
@@ -772,7 +803,7 @@ def zoo_ckpt_restore(name, preset, mesh_cfg, rules, lr, uri, batch, seed):
     route = restore_route(ckpt, state, mesh, rules)
     state = restore_train_state(state, ckpt, mesh, rules)
     blocks = _local_tree(state)
-    xs, _ = _zoo_rows(mesh, rules, batch)
+    xs, _ = _zoo_rows(name, mesh, rules, batch)
     _, loss, _, _ = _zoo_step(name, mesh, rules, state["params"], opt,
                               state["opt_state"], xs, seed)
     return {"coords": _coords(mesh), "route": route, "blocks": blocks,
@@ -782,13 +813,11 @@ def zoo_ckpt_restore(name, preset, mesh_cfg, rules, lr, uri, batch, seed):
 
 def zoo_errors(mesh_cfg):
     """The messages of the zoo's limits on the mesh: vit-tiny with its 10
-    classes over tp, BERT and T5 with the sequence over sp, ViT with the
-    layer axis over pp."""
+    classes over tp, ViT with the layer axis over pp."""
     import torch
 
-    from ray_tpu_torch.models import bert, t5, vit
-    from ray_tpu_torch.parallel.sharding import (ShardingRules,
-                                                 context_parallel_rules)
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel.sharding import ShardingRules
     mesh = _mesh(mesh_cfg)
     out = {}
     for key, fn, exc in (
@@ -796,15 +825,6 @@ def zoo_errors(mesh_cfg):
                                          torch.Generator(), "cpu", mesh=mesh,
                                          rules=ShardingRules(embed=None)),
              ValueError),
-            ("bert_sp", lambda: bert.init(bert.config("bert-tiny"),
-                                          torch.Generator(), "cpu",
-                                          mesh=mesh,
-                                          rules=context_parallel_rules()),
-             NotImplementedError),
-            ("t5_sp", lambda: t5.init(t5.config("t5-tiny"),
-                                      torch.Generator(), "cpu", mesh=mesh,
-                                      rules=context_parallel_rules()),
-             NotImplementedError),
             ("layers", lambda: vit.init(vit.config("vit-tiny"),
                                         torch.Generator(), "cpu", mesh=mesh,
                                         rules=ShardingRules(layers="pp")),
@@ -814,6 +834,75 @@ def zoo_errors(mesh_cfg):
             out[key] = None
         except exc as e:
             out[key] = str(e)
+    return out
+
+
+def zoo_uneven_sequence(name, mesh_cfg, rules, arrays):
+    """The ValueError of placing the batch ``arrays`` by the model's
+    batch_spec on the mesh (None if it placed)."""
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    try:
+        _zoo_rows(name, mesh, rules, arrays)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def zoo_sum_outside_registered_mesh(mesh_cfg, rules):
+    """``average_replicated_grads`` on bert-tiny's parameters placed on
+    the mesh: (the RuntimeError it raises outside ``registered_mesh``, or
+    None if it returned; whether it returned inside)."""
+    import torch
+
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+    from ray_tpu_torch.parallel.sharding import average_replicated_grads
+    mesh, rules = _mesh(mesh_cfg), _zoo_rules(rules)
+    model = bert.init(bert.config("bert-tiny"), torch.Generator(), "cpu",
+                      mesh=mesh, rules=rules)
+    outside = None
+    try:
+        average_replicated_grads(model.parameters(), bert.batch_spec)
+    except RuntimeError as e:
+        outside = str(e)
+    with registered_mesh(mesh, rules):
+        average_replicated_grads(model.parameters(), bert.batch_spec)
+    return outside, True
+
+
+def zoo_dispatched(name, preset, mesh_cfg, rules_names, params0, batch):
+    """For each of ``rules_names``: the model placed on the mesh by those
+    rules, one step on ``batch`` (the first, uncounted), then the
+    operators the next step dispatches, by name and argument shapes."""
+    from collections import Counter
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            shapes = tuple(tuple(a.shape) for a in tree_leaves((args, kwargs))
+                           if isinstance(a, torch.Tensor))
+            self.ops[f"{func} {shapes}"] += 1
+            return func(*args, **kwargs)
+    mesh = _mesh(mesh_cfg)
+    out = []
+    for rules in rules_names:
+        rules = _zoo_rules(rules)
+        state, opt = _zoo_state(name, preset, mesh, rules, 1e-3, params0)
+        xs, _ = _zoo_rows(name, mesh, rules, batch)
+        state["opt_state"] = _zoo_step(name, mesh, rules, state["params"],
+                                       opt, state["opt_state"], xs, 0)[0]
+        with Count() as mode:
+            _zoo_step(name, mesh, rules, state["params"], opt,
+                      state["opt_state"], xs, 1)
+        out.append(dict(mode.ops))
     return out
 
 
@@ -839,4 +928,6 @@ CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
                                   pipeline_run, pipeline_errors, moe_layer,
                                   zoo_forward, zoo_train, zoo_seeded_init,
                                   zoo_ckpt_save, zoo_ckpt_restore,
-                                  zoo_errors, zoo_uneven_vocab)}
+                                  zoo_errors, zoo_dispatched,
+                                  zoo_sum_outside_registered_mesh,
+                                  zoo_uneven_sequence, zoo_uneven_vocab)}

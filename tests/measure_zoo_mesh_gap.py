@@ -59,8 +59,8 @@ def _grads_mesh(module, cfg, make_batch, loss_fn, mesh, rules):
     params = dict(model.named_parameters())
     with registered_mesh(mesh, rules):
         loss = loss_fn(model, *batch)
-        (loss * batch_blocks()).backward()
-    average_replicated_grads(params.values())
+        (loss * batch_blocks(module.batch_spec)).backward()
+        average_replicated_grads(params.values(), module.batch_spec)
     return float(loss.detach()), {n: None if p.grad is None
                                   else local(p.grad).detach().clone()
                                   for n, p in params.items()}

@@ -157,7 +157,8 @@ def test_masked_ce_follows_take_along_axis(pick_log_probs):
         x = torch.tensor(logits[rows], requires_grad=True)
         got, _ = _common.masked_ce(x, torch.from_numpy(targets[rows]),
                                    torch.from_numpy(mask[rows]),
-                                   pick_log_probs=pick_log_probs)
+                                   pick_log_probs=pick_log_probs,
+                                   batch_spec=tt.batch_spec)
         got.backward()
         np.testing.assert_allclose(float(got), float(want), rtol=HELPER_TOL)
         assert np.isfinite(x.grad.numpy()).all()

@@ -243,11 +243,12 @@ def test_pipeline_rules_and_a_mesh_wait_for_later_items():
     with pytest.raises(NotImplementedError, match="item 12"):
         tt.param_specs(tt.config(PRESET), tsharding.ShardingRules(
             layers="pp"))
-    # A mesh is placed on (ROADMAP item 13 is done); one that is not
+    # A mesh is placed on (ROADMAP item 13 is done), under every rules
+    # preset, the sequence over sp too (item 14); one that is not
     # build_mesh's raises.
     with pytest.raises(ValueError, match="build_mesh"):
         tt.init(tt.config(PRESET), torch.Generator(), "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="build_mesh"):
         tt.init(tt.config(PRESET), torch.Generator(), "cpu",
                 mesh=object(), rules=tsharding.context_parallel_rules())
 

@@ -9,7 +9,10 @@ with the port's AdamW at weight decay 0 and save with
 (``restore_on_mesh``). Every block a rank holds is its spec's block of
 the saved tree, and the next step agrees with the port's step from the
 same tree without a mesh (whose steps (b), (c) and
-``tests/test_torch_zoo_mesh.py`` hold to the JAX package's).
+``tests/test_torch_zoo_mesh.py`` hold to the JAX package's). 4 ranks
+train bert-tiny with its sequence over sp (fsdp=2, sp=2 under
+``context_parallel_rules()``) and save it, each shard written once
+across the sp replicas; 4 ranks on fsdp=4 resume it.
 
 (b) The JAX package trains t5-tiny on 4 fake devices with
 ``optax.adamw`` and writes the checkpoint with its own writer; the port
@@ -198,7 +201,48 @@ def test_eight_ranks_save_their_blocks_of_the_zoo_state(saved, model):
 def test_four_ranks_resume_the_zoo_state_from_eight(pools, saved, model,
                                                     mesh_cfg, rules, route):
     _, ckpt = saved(model)
-    name = SAVES[model][0]
+    _hold_resume(pools, ckpt, SAVES[model][0], mesh_cfg, rules, route)
+
+
+def test_a_state_saved_with_the_sequence_over_sp_resumes_without_it(
+        pools, tmp_path):
+    """bert-tiny trained on fsdp=2, sp=2 under context_parallel_rules()
+    (its sequence split over sp) and saved: every rank's blocks are the
+    saved tree's, and each shard is written once, by the rank at sp index
+    0 (its twin at index 1 is listed with the same file). 4 ranks on
+    fsdp=4 under tp_fsdp_rules() restore it bit-equal and resume."""
+    jmod, _, preset = MODULES["bert"]
+    save_mesh = dict(fsdp=2, sp=2)
+    results = pools[4].run("zoo_ckpt_save", "bert", preset, save_mesh,
+                           "context_parallel_rules", jax_params(jmod, preset),
+                           _batches("bert", SAVE_STEPS, 20), LR,
+                           str(tmp_path))
+    ckpt = jsc.ShardedCheckpoint.from_manifest_uri(results[0]["uri"])
+    sizes = _sizes(save_mesh)
+    whole, _ = jsc.flatten_tree(ckpt.load_full())
+    assert int(whole["step"]) == SAVE_STEPS
+    _assert_blocks(results, whole,
+                   lambda p, shape: ckpt.manifest["specs"][p], sizes)
+    files = {s["rank"]: s["file"] for s in ckpt.manifest["shards"]}
+    assert sorted(files) == [0, 1, 2, 3]
+    for rank, r in enumerate(results):
+        # The writer: the rank at sp index 0 beside this one.
+        writer = rank - r["coords"]["sp"]
+        assert files[rank] == files[writer]
+        assert files[rank].endswith(f".shard-{writer:04d}")
+    on_disk = [f for f in spill.FileSpillBackend(str(tmp_path)).list_files()
+               if ".shard-" in f]
+    assert sorted(on_disk) == sorted(set(files.values()))
+    assert len(on_disk) == 2
+    _hold_resume(pools, ckpt, "bert", dict(fsdp=4), "tp_fsdp_rules",
+                 "load_for_rank")
+
+
+def _hold_resume(pools, ckpt, name, mesh_cfg, rules, route):
+    """4 ranks restore ``ckpt`` on ``mesh_cfg`` under ``rules`` and take
+    one step: the route, every block the saved tree's, the step's loss
+    and the parameters after it held to the port's step from the same
+    tree without a mesh."""
     jmod, _, preset = MODULES[name]
     batch = _batches(name, 1, 30)[0]
     cid = pools[4].submit("zoo_ckpt_restore", name, preset, mesh_cfg, rules,
@@ -253,13 +297,18 @@ def _port_state(name, seed):
 
 
 def _port_step(name, state, opt, batch):
-    """One step of ``loss_fn`` → ``autograd.grad`` → AdamW → (state,
-    loss)."""
+    """One step of the loss (BERT's ``mlm_loss``, else ``loss_fn``) →
+    ``autograd.grad`` (zeros where the loss does not reach a parameter,
+    as BERT's pooler) → AdamW → (state, loss)."""
     _, tmod, _ = MODULES[name]
     model = state["params"]
     named = dict(model.named_parameters())
-    loss, _ = tmod.loss_fn(model, *(torch.from_numpy(x) for x in batch))
-    grads = torch.autograd.grad(loss, list(named.values()))
+    batch = [torch.from_numpy(x) for x in batch]
+    loss = (tmod.mlm_loss(model, *batch) if name == "bert"
+            else tmod.loss_fn(model, *batch)[0])
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        named.values(), torch.autograd.grad(loss, list(named.values()),
+                                            allow_unused=True))]
     with torch.no_grad():
         updates, opt_state = opt.update(dict(zip(named, grads)),
                                         state["opt_state"], named)

@@ -109,10 +109,13 @@ def _place(mesh, tree, specs):
 
 
 def _place_batch(mesh, jmod, rules, arrays):
-    """Each array's rows over the rules' batch axes, the rest whole."""
+    """Each array placed by the model's batch_spec (its first ``ndim``
+    entries): its rows over the rules' batch axes and, for BERT's and
+    T5's under ``rules.sequence``, its columns over sp."""
     spec = jmod.batch_spec(rules)
     return tuple(jax.device_put(a, NamedSharding(
-        mesh, jax.sharding.PartitionSpec(spec[0]))) for a in arrays)
+        mesh, jax.sharding.PartitionSpec(*spec[:np.ndim(a)])))
+        for a in arrays)
 
 
 def _inputs(name, seed, B):
@@ -161,6 +164,14 @@ def _jax_loss(name, jmod, cfg):
     """The JAX package's loss of a (placed) batch → (loss, aux)."""
     if name == "bert":
         return lambda p, b: (jmod.mlm_loss(p, cfg, *b), {})
+    if name == "bert-pooled":
+        # A classifier's loss on the pooler's outputs as logits.
+        def pooled_ce(p, b):
+            tokens, labels, attn = b
+            logp = jax.nn.log_softmax(
+                jmod.pooled(p, cfg, tokens, attention_mask=attn), axis=-1)
+            return -jnp.take_along_axis(logp, labels[:, None], -1).mean(), {}
+        return pooled_ce
     if name != "diffusion":
         return lambda p, b: jmod.loss_fn(p, cfg, *b)
 
@@ -314,13 +325,21 @@ def test_gradients_and_adamw_steps_match_jax(pools, config):
     cid = pools[_world(mesh_cfg)].submit("zoo_train", name, preset, mesh_cfg,
                                          rules, params0, batches, LR, 0)
     mesh, jrules = _jax_mesh(mesh_cfg), _jax_rules(rules)
-    losses, global_norms, grads, after, small, specs = _jax_steps(
-        name, jmod, cfg, mesh, jrules, params0, jax_batches)
+    _hold_steps(pools[_world(mesh_cfg)].result(cid), tmod, params0, sizes,
+                _jax_steps(name, jmod, cfg, mesh, jrules, params0,
+                           jax_batches))
+
+
+def _hold_steps(results, tmod, params0, sizes, jax_steps):
+    """Each rank's losses, global gradient norms, first gradients' blocks
+    and parameters after the steps (``zoo_train``) held to the JAX
+    package's steps (``_jax_steps``) on a mesh of ``sizes``."""
+    losses, global_norms, grads, after, small, specs = jax_steps
     norms = {leaf: float(np.linalg.norm(g))
              for leaf, g in flatten(grads).items()}
     floor = GRAD_FLOOR * max(norms.values())
     leaf_of = _leaf_of(tmod, params0)
-    for r in pools[_world(mesh_cfg)].result(cid):
+    for r in results:
         np.testing.assert_allclose(r["losses"], losses, rtol=LOSS_RTOL)
         # optim's global sums weigh each block by its mesh's copies: the
         # norm over the placed leaves (those outside FSDP2 too) is JAX's.
@@ -357,12 +376,12 @@ def test_init_on_a_mesh_holds_the_one_device_weights(pools, world, config):
 def test_limits_raise(pools):
     """What the port does not place raises, never computes something
     else: a mesh axis that does not divide a dim (vit-tiny's 10 classes
-    over tp=4), BERT's and T5's sequence over sp, the stacked layer axis
-    over pp."""
+    over tp=4), the stacked layer axis over pp. (BERT's and T5's sequence
+    over sp computes: tests/test_torch_zoo_sp.py.)"""
     errors = pools[4].run("zoo_errors", dict(fsdp=1, tp=4))
     for e in errors:
+        assert set(e) == {"classes", "layers"}
         assert "does not divide over tp=4" in e["classes"]
-        assert "not ported" in e["bert_sp"] and "not ported" in e["t5_sp"]
         assert "item 12" in e["layers"]
 
 
