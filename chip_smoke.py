@@ -143,7 +143,7 @@ printed:
    selective, the mesh runs' step-0 loss bit-equal to the selective
    step's without a mesh and later losses within 1e-5; ms per step,
    tokens/s, MFU and peak memory of each.
-   5l (last): the gang. Phase 5's recipe through ``TorchTrainer.fit``
+   5l: the gang. Phase 5's recipe through ``TorchTrainer.fit``
    (``ScalingConfig(num_workers=1, use_gpu=True, runtime_env=
    {"worker_process": True})``) on the port's own task/actor runtime: the
    worker process, which sees only the card of its lease, starts its own
@@ -154,6 +154,23 @@ printed:
    pid another than this one's and its device cuda:0; ms per step with
    the gang beside phase 5's, the worker's start (fit to its loop's first
    line), its state's initialisation, save and restore seconds.
+   5m (last): the training side of AIR on the runtime, at gpt-410m (16 x
+   1024, flash, selective remat, loss_chunk 2048). (a) The port's GPT-J
+   example through its ``main()`` in one worker process on the card:
+   (24, 24, 24) launches a step, finite losses, ms per step, tokens/s and
+   approx_mfu. (b) The same recipe through ``TorchTrainer`` with its
+   batches from ``iter_torch_batches`` of the rank's Data shard (5m(d)),
+   losses bit-equal to (a)'s; ``session.report_sharded`` after steps 2
+   and 4, committed by the trainer's executor; a second fit resumed from
+   step 2 bit-equal to the first; state bytes, save and restore seconds,
+   the worker's peak RSS. (c) ``TorchPredictor.from_checkpoint`` of the
+   final checkpoint in this process: per-sequence fp64 logit sums and
+   max abs bit-equal to the worker's; ``BatchPredictor`` over 8
+   sequences bit-equal to the predictor's. (e) ``util.collective``
+   between two worker-process actors on 0.5 GPU leases of the card:
+   allreduce (star and ring path) and allgather of float64 CUDA tensors,
+   numpy's values, the JAX package's dtypes; a bfloat16 tensor reduced
+   as its float32 values.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b", gpt-moe-8x410m's under
@@ -298,6 +315,23 @@ CKPT_STEPS = 2
 # from it. Its losses are phase 5's bit for bit: one process runs the same
 # kernels on the same inputs in the same order as another.
 GANG_STEPS, GANG_SAVE_AT = 5, 3
+# Phase 5m: the training side of AIR on the runtime at gpt-410m, with the
+# JAX package's example's preset and sizes (examples/gptj_finetune.py:
+# 103-110: batch 16 x 1024, flash attention, selective remat, loss_chunk
+# 2048; its default_optimizer at lr 1e-5 over AIR_STEPS steps). Nothing
+# cut. The example runs through its main() (5m(a)); the same recipe is
+# fed by Data, saved by session.report_sharded after AIR_SAVE_AT and
+# resumed (5m(b), 5m(d)); TorchPredictor and BatchPredictor score
+# AIR_PROBE_ROWS sequences on its checkpoint (5m(c), 5m(d)); and two
+# actors on halves of the card allreduce and allgather CUDA tensors below
+# and above util.collective's _INLINE_LIMIT of 512 KiB (5m(e)).
+AIR_PRESET = "gpt-410m"
+AIR_BATCH, AIR_SEQ = 16, 1024
+AIR_OVERRIDES = dict(attn_impl="flash", remat_policy="selective",
+                     loss_chunk=2048)
+AIR_LR, AIR_STEPS, AIR_SAVE_AT = 1e-5, 4, (2, 4)
+AIR_PROBE_ROWS = 4
+AIR_COLLECTIVE_SIZES = (1024, 1 << 17)  # float64: 8 KiB and 1 MiB
 # Phase 5j: gpt-410m (ray_tpu/models/gpt.py:118-120: 24 layers, d_model
 # 1024, 16 heads of 64, d_ff 4096, vocab 50304) at the JAX package's own
 # recipe for it (bench.py:2473-2478): batch 18 x 1024, flash attention,
@@ -3263,6 +3297,429 @@ def phase_gang(torch, ref):
     return counts
 
 
+# -- 5m. the training side of AIR ----------------------------------------------
+
+def _worker_imports_this_checkout():
+    """Worker processes import the port of this checkout."""
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+
+
+def _air_logit_stats(model, batch):
+    """Per sequence of ``batch["tokens"]``: the fp64 sum and the max abs of
+    ``model``'s logits. The predictor's apply_fn, and the worker's probe
+    of its own model."""
+    logits = model(batch["tokens"])
+    return {"logit_sum": logits.double().sum(dim=(1, 2)),
+            "logit_max_abs": logits.float().abs().amax(dim=(1, 2))}
+
+
+def _air_model(device):
+    """An untrained gpt-410m of 5m's recipe on ``device``: what the
+    predictor restores its checkpoint into."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    cfg = gpt.config(AIR_PRESET, **AIR_OVERRIDES)
+    return gpt.init(cfg, torch.Generator(device).manual_seed(1), device)
+
+
+def _air_probe(seed):
+    """AIR_PROBE_ROWS sequences of tokens from ``seed``."""
+    from ray_tpu_torch.models import gpt
+    vocab = gpt.config(AIR_PRESET).vocab_size
+    return np.random.default_rng(seed).integers(
+        0, vocab, (AIR_PROBE_ROWS, AIR_SEQ), dtype=np.int32)
+
+
+def phase_air_example(torch):
+    """5m(a): the port's GPT-J example through its main() at gpt-410m,
+    one worker process on the card with its own 1-rank group. Returns the
+    worker's (K1, K2, K3) launches and the losses."""
+    from ray_tpu_torch.examples import gptj_finetune
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.config(AIR_PRESET, **AIR_OVERRIDES)
+    per_step = [cfg.n_layers] * 3 if DEVICE == "cuda" else [0, 0, 0]
+    argv = ["--preset", AIR_PRESET, "--num-workers", "1", "--dp", "1",
+            "--fsdp", "1", "--tp", "1", "--steps", str(AIR_STEPS)]
+    if DEVICE != "cuda":
+        argv += ["--cpu", "--batch", str(AIR_BATCH), "--seq", str(AIR_SEQ)]
+    _worker_imports_this_checkout()
+    t0 = time.perf_counter()
+    result = gptj_finetune.main(argv)
+    fit_s = time.perf_counter() - t0
+    hist = result.metrics_history
+    check([m["step"] for m in hist] == list(range(AIR_STEPS)),
+          f"5m(a): the example reported steps {[m['step'] for m in hist]}")
+    check(all(m["kernel_launches"] == per_step for m in hist),
+          f"5m(a): launches per step (K1, K2, K3) "
+          f"{[m['kernel_launches'] for m in hist]}, expected {per_step}")
+    losses = [m["loss"] for m in hist]
+    check(np.isfinite(losses).all(), f"5m(a): losses {losses}")
+    check(DEVICE != "cuda" or all("approx_mfu" in m for m in hist),
+          "5m(a): the example reported no approx_mfu on the card")
+    ms = [AIR_BATCH * AIR_SEQ / m["tokens_per_s"] * 1e3 for m in hist]
+    tokens_s = [m["tokens_per_s"] for m in hist]
+    mfu = [m.get("approx_mfu") for m in hist]
+    print(f"air example: {AIR_PRESET} ({hist[0]['n_params'] / 1e9:.3f} B "
+          f"params) through ray_tpu_torch.examples.gptj_finetune.main("
+          f"{argv}) in {fit_s:.1f} s; losses {losses}; ms per step "
+          f"{[round(t, 2) for t in ms]}, tokens/s "
+          f"{[round(t, 1) for t in tokens_s]}, approx_mfu {mfu} of the "
+          f"989 TFLOP/s bf16 peak; steps 3-{AIR_STEPS} mean "
+          f"{statistics.mean(ms[2:]):.2f} ms; launches (K1, K2, K3) "
+          f"{per_step} per step; {CARD}")
+    return tuple(sum(m["kernel_launches"][k] for m in hist)
+                 for k in range(3)), losses
+
+
+def _air_loop(config):
+    """5m(b)'s train loop, run by the gang's worker: the example's recipe
+    on prepare_mesh's 1-rank mesh from seed 0, or from the trainer's
+    checkpoint by restore_train_state; each step's batch from the rank's
+    shard of the "train" dataset (iter_torch_batches); a sharded report
+    (session.report_sharded) after each step of ``config["save_at"]``,
+    a plain one after the others. Reports each step's loss, ms, (K1, K2,
+    K3) launches and the process's peak RSS, the last step the probe's
+    logit stats."""
+    import resource
+
+    import torch
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig
+    from ray_tpu_torch.parallel.mesh import registered_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.parallel.train_step import (default_optimizer,
+                                                   init_train_state,
+                                                   make_train_step)
+    from ray_tpu_torch.train import prepare_mesh, restore_train_state
+
+    def rss_gib():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+    device = config["device"]
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = prepare_mesh(MeshConfig(dp=1, fsdp=1, tp=1), device=device)
+    cfg = gpt.config(config["preset"], **config["overrides"])
+    rules = ShardingRules(sequence=None)
+    opt = default_optimizer(learning_rate=config["lr"],
+                            total_steps=config["steps"])
+    state = init_train_state(cfg, mesh, rules, opt, seed=0, device=device)
+    loaded, restore_s = session.get_checkpoint(), None
+    if loaded is not None:
+        t0 = time.perf_counter()
+        state = restore_train_state(state, loaded, mesh, rules)
+        restore_s = time.perf_counter() - t0
+    step = make_train_step(cfg, mesh, rules, opt)
+    start = int(state["step"])
+    shard = session.get_dataset_shard("train")
+    where = {"pid": os.getpid(), "restore_s": restore_s,
+             "device": str(next(state["params"].parameters()).device),
+             "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    save_s = None
+    for i, b in enumerate(shard.iter_torch_batches(
+            batch_size=config["batch"], device=device)):
+        if i == config["steps"]:
+            break
+        if i < start:
+            continue
+        batch = {"tokens": b["tokens"][:, :-1], "targets": b["tokens"][:, 1:]}
+        counts0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])  # waits for the step
+        report = {"step": i + 1, "loss": loss,
+                  "ms": (time.perf_counter() - t0) * 1e3,
+                  "launches": [b - a for a, b in zip(counts0, _counts(fa))],
+                  "dtype": str(b["tokens"].dtype), "rss_gib": rss_gib(),
+                  "prev_save_s": save_s, **where}
+        if i + 1 == config["steps"]:
+            probe = {"tokens": torch.tensor(config["probe"], device=device)}
+            with torch.no_grad():
+                report["probe"] = {k: v.cpu().numpy() for k, v in
+                                   _air_logit_stats(state["params"],
+                                                    probe).items()}
+        save_s = None
+        if i + 1 in config["save_at"]:
+            t0 = time.perf_counter()
+            with registered_mesh(mesh, rules):
+                session.report_sharded(report, state,
+                                       extra={"step": i + 1})
+            save_s = time.perf_counter() - t0
+        else:
+            session.report(report)
+
+
+def phase_air_training(torch, example_losses):
+    """5m(b) with 5m(d)'s Data: _air_loop through TorchTrainer in one
+    worker process on the card: fit 1 takes AIR_STEPS steps and reports a
+    sharded checkpoint after each of AIR_SAVE_AT, which the trainer's
+    executor commits; fit 2 resumes from the first of them and must
+    repeat fit 1's later steps bit for bit. Fit 1 is 5m(a)'s recipe on
+    5m(a)'s token stream (seed 0, drawn in the same order), so its losses
+    must be 5m(a)'s bit for bit. Returns (the (K1, K2, K3)
+    launches of both fits, fit 1's final ShardedCheckpoint and its last
+    report, the storage directory to delete)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import ShardedCheckpoint, TorchTrainer
+    from ray_tpu_torch.train._internal import sharded_checkpoint as sc
+
+    cfg = gpt.config(AIR_PRESET, **AIR_OVERRIDES)
+    per_step = [cfg.n_layers] * 3 if DEVICE == "cuda" else [0, 0, 0]
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (AIR_STEPS * AIR_BATCH, AIR_SEQ + 1))
+    root = tempfile.mkdtemp(prefix="chip_smoke_air_")
+    config = {"device": DEVICE, "preset": AIR_PRESET,
+              "overrides": AIR_OVERRIDES, "batch": AIR_BATCH, "lr": AIR_LR,
+              "steps": AIR_STEPS, "save_at": AIR_SAVE_AT,
+              "probe": _air_probe(1)}
+    scaling = ScalingConfig(num_workers=1, use_gpu=DEVICE == "cuda",
+                            runtime_env={"worker_process": True})
+
+    def fit(name, checkpoint):
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            _air_loop, train_loop_config=config, scaling_config=scaling,
+            datasets={"train": data.from_numpy(tokens, column="tokens")},
+            run_config=RunConfig(name=name, storage_path=root),
+            resume_from_checkpoint=checkpoint).fit()
+        return result, time.perf_counter() - t0
+
+    first, fit_first = fit("air", None)
+    final = first.checkpoint
+    check(isinstance(final, ShardedCheckpoint)
+          and final.extra == {"step": AIR_SAVE_AT[-1]}
+          and final.world_size == 1,
+          f"5m(b): fit 1's checkpoint is {final}")
+    at = ShardedCheckpoint.from_manifest_uri(final.uri.replace(
+        sc.manifest_filename("air", final.seq),
+        sc.manifest_filename("air", final.seq - 1)))
+    check(at.extra == {"step": AIR_SAVE_AT[0]},
+          f"5m(b): fit 1's first commit holds {at.extra}")
+    second, fit_second = fit("air-resumed", at)
+
+    runs = [first.metrics_history, second.metrics_history]
+    check([m["step"] for m in runs[0]] == list(range(1, AIR_STEPS + 1)),
+          f"5m(b): fit 1 reported steps {[m['step'] for m in runs[0]]}")
+    check([m["step"] for m in runs[1]]
+          == list(range(AIR_SAVE_AT[0] + 1, AIR_STEPS + 1)),
+          f"5m(b): fit 2 reported steps {[m['step'] for m in runs[1]]}")
+    fed = [m["loss"] for m in runs[0]]
+    check(fed == example_losses, f"5m(d): fit 1's losses {fed} from "
+          f"iter_torch_batches are not 5m(a)'s {example_losses} bit for bit")
+    resumed = [m["loss"] for m in runs[1]]
+    want = [m["loss"] for m in runs[0][AIR_SAVE_AT[0]:]]
+    check(resumed == want, f"5m(b): resumed losses {resumed} are not fit "
+          f"1's {want} bit for bit")
+    for run in runs:
+        check(np.isfinite([m["loss"] for m in run]).all(),
+              f"5m(b): losses {[m['loss'] for m in run]}")
+        check(all(m["launches"] == per_step for m in run),
+              f"5m(b): launches per step (K1, K2, K3) "
+              f"{[m['launches'] for m in run]}, expected {per_step}")
+        check(all(m["dtype"] == "torch.int32" for m in run),
+              f"5m(d): batches of {[m['dtype'] for m in run]}")
+        w = run[0]
+        check(w["pid"] != os.getpid(), "5m(b) ran in this process")
+        if DEVICE == "cuda":
+            check(w["device"] == "cuda:0" and w["visible"] == "0",
+                  f"5m(b): the worker trained on {w['device']} with "
+                  f"CUDA_VISIBLE_DEVICES {w['visible']!r}")
+    for a, b in zip(runs[0][-1]["probe"].values(),
+                    runs[1][-1]["probe"].values()):
+        check(np.array_equal(a, b), "5m(b): the resumed model's probe "
+              "logits differ from fit 1's")
+    manifest = final.manifest
+    check(manifest["world_size"] == 1 and len(manifest["shards"]) == 1,
+          f"5m(b): the manifest lists {len(manifest['shards'])} shards of "
+          f"world {manifest['world_size']}")
+    state_bytes = manifest["shards"][0]["bytes"]
+    ms = [m["ms"] for m in runs[0]]
+    print(f"air training: {AIR_PRESET} through TorchTrainer.fit in worker "
+          f"pid {runs[0][0]['pid']} on {runs[0][0]['device']}, batches from "
+          f"iter_torch_batches of the rank's Data shard (int32); fit 1 "
+          f"{fit_first:.1f} s, losses {fed} (5m(a)'s bit for bit), ms "
+          f"per step {[round(t, 2) for t in ms]}; fit 2 from the step-"
+          f"{AIR_SAVE_AT[0]} commit {fit_second:.1f} s, losses {resumed}, "
+          f"bit-equal to fit 1's; {CARD}")
+    print(f"air training: report_sharded wrote {state_bytes / 1e9:.3f} GB "
+          f"(fp32 params and AdamW moments) in one shard, committed by the "
+          f"trainer's executor; the save after step {AIR_SAVE_AT[0]} took "
+          f"{runs[0][AIR_SAVE_AT[0]]['prev_save_s']:.2f} s in the loop "
+          f"(layout, write, commit); restore {runs[1][0]['restore_s']:.2f} "
+          f"s; the worker's peak RSS {runs[0][0]['rss_gib']:.2f} GiB after "
+          f"step 1, {runs[0][-1]['rss_gib']:.2f} GiB after step "
+          f"{AIR_STEPS}; {CARD}")
+    counts = tuple(sum(m["launches"][k] for run in runs for m in run)
+                   for k in range(3))
+    return counts, final, runs[0][-1], root
+
+
+def phase_air_predictor(torch, final, last):
+    """5m(c) and 5m(d)'s BatchPredictor: TorchPredictor from fit 1's final
+    ShardedCheckpoint in this process on the card, then BatchPredictor
+    mapping it over a Dataset of 2 x AIR_PROBE_ROWS sequences. Returns
+    the K1 launches."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import BatchPredictor, TorchPredictor
+
+    probes = [_air_probe(1), _air_probe(2)]
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    pred = TorchPredictor.from_checkpoint(final, model=_air_model,
+                                          apply_fn=_air_logit_stats,
+                                          device=DEVICE)
+    load_s = time.perf_counter() - t0
+    got = pred.predict({"tokens": probes[0]})
+    want = last["probe"]
+    for k in want:
+        check(got[k].dtype == want[k].dtype
+              and np.array_equal(got[k], want[k]),
+              f"5m(c): the predictor's {k} {got[k]!r} is not the worker's "
+              f"{want[k]!r} bit for bit")
+    other = pred.predict({"tokens": probes[1]})
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = BatchPredictor.from_checkpoint(
+        final, TorchPredictor, model=_air_model, apply_fn=_air_logit_stats,
+        device=DEVICE).predict(
+            data.from_numpy(np.concatenate(probes), column="tokens"),
+            batch_size=AIR_PROBE_ROWS, min_scoring_workers=1,
+            max_scoring_workers=1)
+    rows = list(out.iter_batches(batch_size=None))
+    batch_s = time.perf_counter() - t0
+    for k in want:
+        col = np.concatenate([r[k] for r in rows])
+        check(np.array_equal(col, np.concatenate([got[k], other[k]])),
+              f"5m(d): BatchPredictor's {k} differ from the predictor's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _counts(fa)
+    print(f"air predictor: TorchPredictor.from_checkpoint (restore "
+          f"{load_s:.2f} s) on {DEVICE}: per-sequence fp64 logit sums "
+          f"{got['logit_sum'].tolist()} and max abs "
+          f"{got['logit_max_abs'].tolist()}, bit-equal to the worker's after "
+          f"step {AIR_STEPS}; BatchPredictor over {2 * AIR_PROBE_ROWS} "
+          f"sequences in {batch_s:.2f} s, bit-equal to the predictor's; "
+          f"K1 launches {counts[0]}; {CARD}")
+    return counts
+
+
+class _AirCollective:
+    """5m(e)'s rank: an actor on half of the card."""
+
+    def setup(self, world, rank):
+        from ray_tpu_torch.util import collective
+        collective.init_collective_group(world, rank, "nccl", "air")
+        self.rank = rank
+        return True
+
+    def run(self, n):
+        import torch
+
+        from ray_tpu_torch.util import collective
+        x = torch.tensor(np.random.default_rng(self.rank).normal(size=n),
+                         device=DEVICE)
+        reduced = collective.allreduce(x, "air")
+        gathered = collective.allgather(x, "air")
+        half = collective.allreduce(x.to(torch.bfloat16), "air")
+        return {"device": str(x.device),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "pid": os.getpid(), "reduced": reduced,
+                "gathered": gathered, "bf16": half}
+
+
+def phase_air_collective(torch):
+    """5m(e): two worker-process actors, each on a 0.5 GPU lease of the
+    one card, allreduce (star and ring path) and allgather float64 CUDA
+    tensors; values against numpy's, dtypes against the JAX package's
+    (the star path reduces float64 as float32, the ring keeps float64).
+    A bfloat16 tensor, which numpy lacks, is reduced as its float32
+    values."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util import collective
+
+    actor = ray_tpu_torch.remote(_AirCollective).options(
+        num_gpus=0.5 if DEVICE == "cuda" else 0,
+        runtime_env={"worker_process": True})
+    ranks = [actor.remote() for _ in range(2)]
+    ray_tpu_torch.get([a.setup.remote(2, r) for r, a in enumerate(ranks)])
+    for n in AIR_COLLECTIVE_SIZES:
+        outs = ray_tpu_torch.get([a.run.remote(n) for a in ranks])
+        xs = [np.random.default_rng(r).normal(size=n) for r in range(2)]
+        ring = 8 * n > collective._INLINE_LIMIT
+        want = (xs[0] + xs[1] if ring
+                else xs[0].astype(np.float32) + xs[1].astype(np.float32))
+        for o in outs:
+            check(o["device"] == ("cuda:0" if DEVICE == "cuda" else "cpu"),
+                  f"5m(e): a rank's tensor is on {o['device']}")
+            check(o["reduced"].dtype == want.dtype
+                  and np.array_equal(o["reduced"], want),
+                  f"5m(e): allreduce of {n} float64 gave "
+                  f"{o['reduced'].dtype}, expected {want.dtype} and numpy's "
+                  f"values")
+            check(all(np.array_equal(g, x) and g.dtype == np.float64
+                      for g, x in zip(o["gathered"], xs)),
+                  f"5m(e): allgather of {n} float64 differs from the ranks'"
+                  f" arrays")
+            halves = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                      for x in xs]
+            check(o["bf16"].dtype == np.float32
+                  and np.array_equal(o["bf16"], halves[0] + halves[1]),
+                  f"5m(e): allreduce of {n} bfloat16 gave {o['bf16'].dtype},"
+                  f" expected float32 and the sum of their float32 values")
+        check(len({o["pid"] for o in outs} | {os.getpid()}) == 3,
+              "5m(e): the ranks share a process")
+        if DEVICE == "cuda":
+            check(all(o["visible"] == "0" for o in outs),
+                  f"5m(e): CUDA_VISIBLE_DEVICES {[o['visible'] for o in outs]}")
+        print(f"air collective: allreduce and allgather of {n} float64 "
+              f"({8 * n} bytes) on {outs[0]['device']} between two worker "
+              f"processes on 0.5 GPU leases of card "
+              f"{outs[0]['visible']!r}: {'ring' if ring else 'star'} path, "
+              f"reduced to {outs[0]['reduced'].dtype} (the JAX package's "
+              f"dtype), values numpy's; bfloat16 reduced to "
+              f"{outs[0]['bf16'].dtype}")
+    for a in ranks:
+        ray_tpu_torch.kill(a)
+
+
+def phase_air(torch):
+    """Phase 5m: 5m(a)-(e) on one runtime; returns the (K1, K2, K3)
+    launches of 5m's paths (the workers' and this process's)."""
+    import ray_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _worker_imports_this_checkout()
+    ray_tpu_torch.init(num_cpus=4)
+    root = None
+    try:
+        example, losses = phase_air_example(torch)
+        training, final, last, root = phase_air_training(torch, losses)
+        predictor = phase_air_predictor(torch, final, last)
+        phase_air_collective(torch)
+    finally:
+        ray_tpu_torch.shutdown()
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+    check(root is None or not os.path.exists(root), f"{root} was not deleted")
+    return tuple(a + b + c for a, b, c in zip(example, training, predictor))
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -3302,7 +3759,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5l; returns the kernels line's rows."""
+    """Phases 2-5m; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -3345,6 +3802,7 @@ def _main_phases(torch):
     _timed("5k", phase_zoo_context_parallel, torch, mesh, zoo_ref)
     del zoo_ref
     k1_gang, k2_gang, k3_gang = _timed("5l", phase_gang, torch, ref)
+    k1_air, k2_air, k3_air = _timed("5m", phase_air, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [
@@ -3352,15 +3810,15 @@ def _main_phases(torch):
          "replaces": ref + "37",
          "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
                       + k1_mesh + k1_ckpt + k1_sel + k1_llama + k1_moe_serve
-                      + k1_moe + k1_moe_mesh + k1_gang), **k1},
+                      + k1_moe + k1_moe_mesh + k1_gang + k1_air), **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
          "launches": (k2_train + k2_mesh + k2_ckpt + k2_sel + k2_llama
-                      + k2_moe + k2_moe_mesh + k2_gang), **k2},
+                      + k2_moe + k2_moe_mesh + k2_gang + k2_air), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
          "launches": (k3_train + k3_mesh + k3_ckpt + k3_sel + k3_llama
-                      + k3_moe + k3_moe_mesh + k3_gang), **k3}]
+                      + k3_moe + k3_moe_mesh + k3_gang + k3_air), **k3}]
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
 
@@ -95,14 +95,28 @@ class _Session:
                 ctx["storage_uri"], session_id=ctx.get("session_id", ""))
         seq = int(ctx["seq_base"]) + self._shard_reports
         self._shard_reports += 1
+        local = None
+        laid_out = (None if _state_layout is None
+                    else _state_layout(state, self.world_rank,
+                                       self.world_size))
+        if laid_out is not None:
+            # A train state that is not a tree of arrays, laid out by its
+            # owner: this rank's own blocks, and stand-ins of the whole
+            # leaves for build_tree_meta.
+            if specs is not None or axes_items is not None:
+                raise ValueError("a train state's specs and axes are its "
+                                 "mesh's and rules'; pass neither")
+            local, flat, structure, specs, axes_items = laid_out
         if axes_items is None:
             axes_items = [("fsdp", self.world_size)]
-        flat, structure = sc.flatten_tree(state)
+        if local is None:
+            flat, structure = sc.flatten_tree(state)
         if specs is None:
             specs = sc.default_specs(flat, axis=axes_items[0][0])
         try:
-            local = sc.extract_local_shard(flat, specs, axes_items,
-                                           self.world_rank)
+            if local is None:
+                local = sc.extract_local_shard(flat, specs, axes_items,
+                                               self.world_rank)
             record = sc.write_shard(self._shard_backend, ctx["run"], seq,
                                     self.world_rank, local)
         except chaos.ChaosKill:
@@ -116,6 +130,19 @@ class _Session:
             record["tree_meta"] = sc.build_tree_meta(
                 flat, structure, specs, axes_items, extra)
         self.report(metrics, shard=record)
+
+
+# How report_sharded lays out a train state that is not a tree of arrays:
+# (state, rank, world) -> None for a state it does not know, else (the
+# rank's blocks by path, whole leaves or stand-ins of their shape and
+# dtype, the tree's structure, the specs, the mesh's axes). The trainer
+# that owns such a state sets it (train.torch.checkpoint).
+_state_layout: Optional[Callable[[Any, int, int], Optional[tuple]]] = None
+
+
+def set_state_layout(layout) -> None:
+    global _state_layout
+    _state_layout = layout
 
 
 # One session per OS thread: train workers are actor threads, so

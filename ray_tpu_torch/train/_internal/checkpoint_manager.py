@@ -1,13 +1,5 @@
 """Durable train checkpoints: persist every reported checkpoint off-node.
 
-A copy of ``ray_tpu/train/_internal/checkpoint_manager.py`` (the port
-imports nothing of ``ray_tpu``): the same index file, commit rule, orphan
-GC and pruning over the same files, so either package resumes a run the
-other saved. The port has no cluster runtime: where the JAX package emits
-an event or asks the runtime for its session id, the port does what the
-JAX package does with no runtime up — no event, and session id ``""``
-(``session://`` then needs its id in the URI).
-
 Analog of the reference's train/_internal/checkpoint_manager.py
 (_CheckpointManager: register_checkpoint, num_to_keep /
 checkpoint_score_attribute pruning) — with the durability story built on
@@ -23,7 +15,7 @@ persisted sequence; a new ``Trainer`` under the same ``RunConfig.name``
 loads it and auto-resumes from the newest entry. With ``session://``
 this spans gang restarts within one cluster session; with ``file://`` on
 shared storage or ``mock-s3://`` (and real remote schemes registered via
-``register_spill_backend``) it also spans restarts of the whole program.
+``register_spill_backend``) it also spans full driver restarts.
 
 Sharded checkpoints (per-rank ``.shard-<rank>`` files + a ``.manifest``
 commit record — see ``sharded_checkpoint.py``) share the same index and
@@ -45,15 +37,21 @@ import logging
 import os
 from typing import Any, Dict, List, Optional
 
-from ray_tpu_torch._private import builtin_metrics, spill
+from ray_tpu_torch._private import spill
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.air.config import CheckpointConfig
 
 logger = logging.getLogger("ray_tpu_torch.train")
 
 
-def _count_persist_failure() -> None:
-    builtin_metrics.train_checkpoint_persist_failures().inc()
+def _count_persist_failure(what: str) -> None:
+    try:
+        from ray_tpu_torch._private import builtin_metrics, events
+        builtin_metrics.train_checkpoint_persist_failures().inc()
+        events.emit("train", f"durable checkpoint {what} write failed",
+                    severity="error", labels={"what": what})
+    except Exception:  # noqa: BLE001 - accounting never breaks training
+        pass
 
 
 def normalize_storage_uri(storage_path: str) -> str:
@@ -62,6 +60,13 @@ def normalize_storage_uri(storage_path: str) -> str:
     if "://" in storage_path:
         return storage_path
     return "file://" + os.path.abspath(storage_path)
+
+
+def _current_session_id() -> str:
+    """The running runtime's session id, or "" with none up; asking
+    starts no runtime."""
+    from ray_tpu_torch._private.worker import global_worker
+    return getattr(global_worker._runtime, "session_id", "")
 
 
 def _sanitize(name: str) -> str:
@@ -80,7 +85,7 @@ class CheckpointManager:
         self.run_name = _sanitize(run_name or "train")
         self.base_uri = normalize_storage_uri(storage_path)
         self._backend = spill.backend_for_uri(
-            self.base_uri, session_id="")
+            self.base_uri, session_id=_current_session_id())
         # [{"uri","seq","score"}] oldest-first; sharded entries add
         # {"sharded": True, "files": [shard filenames]}. seq is
         # monotonic across restarts of the same run (resumed from the
@@ -173,8 +178,22 @@ class CheckpointManager:
         if changed:
             self._tracked.sort(key=lambda e: e["seq"])
             self._write_index()
-        if removed:
-            builtin_metrics.train_ckpt_orphans_gc().inc(removed)
+        if removed or adopted:
+            try:
+                from ray_tpu_torch._private import builtin_metrics, events
+                if removed:
+                    builtin_metrics.train_ckpt_orphans_gc().inc(removed)
+                events.emit(
+                    "train",
+                    f"checkpoint GC for run {self.run_name!r}: "
+                    f"{removed} orphan file(s) removed, "
+                    f"{adopted} committed manifest(s) adopted",
+                    severity="warning" if removed else "info",
+                    labels={"run": self.run_name, "event": "ckpt_gc",
+                            "removed": str(removed),
+                            "adopted": str(adopted)})
+            except Exception:  # noqa: BLE001 - GC accounting is best-effort
+                pass
 
     def _write_index(self) -> None:
         payload = json.dumps({
@@ -187,7 +206,7 @@ class CheckpointManager:
             # The checkpoint itself landed; a stale index only costs
             # auto-resume precision, never training progress.
             logger.warning("checkpoint index write failed: %s", exc)
-            _count_persist_failure()
+            _count_persist_failure("index")
 
     # -- registration ------------------------------------------------------
 
@@ -206,7 +225,7 @@ class CheckpointManager:
             logger.warning(
                 "durable checkpoint write failed (%s); gang restart will "
                 "fall back to the in-memory checkpoint", exc)
-            _count_persist_failure()
+            _count_persist_failure("checkpoint")
             return checkpoint
         score = None
         attr = self.config.checkpoint_score_attribute
@@ -217,7 +236,11 @@ class CheckpointManager:
         self._tracked.append({"uri": uri, "seq": self._seq, "score": score})
         self._prune()
         self._write_index()
-        builtin_metrics.train_checkpoints_persisted().inc()
+        try:
+            from ray_tpu_torch._private import builtin_metrics
+            builtin_metrics.train_checkpoints_persisted().inc()
+        except Exception:  # noqa: BLE001 - metrics never break training
+            pass
         return Checkpoint.from_uri(uri)
 
     def next_seq_base(self) -> int:
@@ -250,7 +273,7 @@ class CheckpointManager:
             logger.warning(
                 "sharded checkpoint commit (manifest write) failed (%s); "
                 "shard set seq=%d stays uncommitted", exc, seq)
-            _count_persist_failure()
+            _count_persist_failure("manifest")
             return None
         self._seq = max(self._seq, int(seq))
         score = None
@@ -266,7 +289,21 @@ class CheckpointManager:
         self._tracked.sort(key=lambda e: e["seq"])
         self._prune()
         self._write_index()
-        builtin_metrics.train_checkpoints_persisted().inc()
+        total_bytes = sum(int(s["bytes"]) for s in manifest["shards"])
+        try:
+            from ray_tpu_torch._private import builtin_metrics, events
+            builtin_metrics.train_checkpoints_persisted().inc()
+            events.emit(
+                "train",
+                f"sharded checkpoint seq={seq} committed: "
+                f"{len(shard_records)} shard(s), {total_bytes} bytes, "
+                f"mesh {tree_meta.get('mesh')}",
+                labels={"run": self.run_name, "event": "ckpt_commit",
+                        "seq": str(seq),
+                        "shards": str(len(shard_records)),
+                        "bytes": str(total_bytes)})
+        except Exception:  # noqa: BLE001 - accounting never breaks saves
+            pass
         return sc.ShardedCheckpoint(manifest, uri)
 
     def _delete_entry(self, entry: Dict[str, Any]) -> None:

@@ -68,6 +68,12 @@ class TrainWorker:
         return {"rank": self.world_rank, "hostname": socket.gethostname(),
                 "pid": os.getpid(), "gpu_ids": ray_tpu_torch.get_gpu_ids()}
 
+    def torch_bind_store(self, world_size: int) -> int:
+        """Rank 0's half of the rendezvous: the port its process group's
+        store is bound on, before the other ranks are told it."""
+        from ray_tpu_torch.train.torch import bind_store
+        return bind_store(world_size)
+
     def torch_distributed_init(self) -> None:
         """The process group over NCCL when this rank holds a card, over
         gloo when it was asked for the CPU (no GPU in its lease)."""

@@ -6,9 +6,15 @@ group once, from an explicit ``tcp://`` address. A gang that spans
 processes gets ``MASTER_ADDR``/``MASTER_PORT`` (the names Ray's torch
 backend sets) and ``RAY_TPU_WORLD_SIZE``/``RAY_TPU_RANK`` from
 ``_TorchBackend``; with none of them set the process is a world of its
-own, one rank on a free loopback port, as one JAX process is on one host.
+own, one rank on a loopback port, as one JAX process is on one host.
 The backend follows the device the caller names: NCCL for the card, gloo
 for ``device="cpu"``.
+
+Rank 0 binds the group's store on a port the kernel picks
+(:func:`bind_store`) before any other rank learns the port: a port found
+free and released until rank 0 binds it can be taken in between by
+another process of a busy host, and the ranks then wait on a stranger's
+socket.
 
 ``TorchTrainer`` runs a train loop on every rank of the gang
 (``DataParallelTrainer``): ``ScalingConfig(use_gpu=True)`` reserves a
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import os
 import socket
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -34,10 +41,33 @@ ENV_VARS = ("MASTER_ADDR", "MASTER_PORT", "RAY_TPU_WORLD_SIZE",
             "RAY_TPU_RANK")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# The rendezvous waits as long as init_process_group's tcp:// one does.
+STORE_TIMEOUT = timedelta(minutes=30)
+# Rank 0's store, bound by bind_store until distributed_init_if_needed
+# takes it.
+_bound: Optional[dist.TCPStore] = None
+
+
+def bind_store(world_size: int) -> int:
+    """Rank 0's half of a gang's rendezvous, before the other ranks are
+    told where to meet: bind the process group's store on a port the kernel
+    picks, keep it for :func:`distributed_init_if_needed`, and return the
+    port."""
+    global _bound
+    _bound = dist.TCPStore("127.0.0.1", 0, world_size, is_master=True,
+                           timeout=STORE_TIMEOUT, wait_for_workers=False)
+    return _bound.port
+
+
+def _store(addr: str, port: int, world: int, rank: int) -> dist.TCPStore:
+    """The group's store: rank 0's own from :func:`bind_store` where it
+    bound ``port``, else a server on ``port`` (rank 0) or a client of it."""
+    global _bound
+    if rank == 0 and _bound is not None and _bound.port == port:
+        store, _bound = _bound, None
+        return store
+    return dist.TCPStore(addr, port, world, is_master=rank == 0,
+                         timeout=STORE_TIMEOUT, wait_for_workers=False)
 
 
 def distributed_init_if_needed(device: DeviceLike = None) -> None:
@@ -48,7 +78,8 @@ def distributed_init_if_needed(device: DeviceLike = None) -> None:
         return
     given = {k: os.environ[k] for k in ENV_VARS if k in os.environ}
     if not given:
-        addr, port, world, rank = "127.0.0.1", _free_port(), 1, 0
+        addr, world, rank = "127.0.0.1", 1, 0
+        port = bind_store(world)
     elif len(given) < len(ENV_VARS):
         missing = [k for k in ENV_VARS if k not in given]
         raise ValueError(f"{sorted(given)} are set but not {missing}; set "
@@ -61,7 +92,7 @@ def distributed_init_if_needed(device: DeviceLike = None) -> None:
         torch.cuda.set_device(dev.index if dev.index is not None
                               else rank % torch.cuda.device_count())
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            init_method=f"tcp://{addr}:{port}",
+                            store=_store(addr, port, world, rank),
                             world_size=world, rank=rank)
 
 
@@ -86,7 +117,8 @@ class _TorchBackend(Backend):
         reference parity: _TorchBackend.on_start sets MASTER_ADDR/PORT and
         calls dist.init_process_group on every rank, and so does this one
         when every rank has a process of its own (a host and pid no other
-        rank has) outside this one: one free port, picked once. A gang on
+        rank has) outside this one: rank 0 binds the store's port first
+        (``bind_store``), and every rank is then told it. A gang on
         threads of this process gets no process group from the backend, as
         in ``ray_tpu/train/jax``; its loop may start a group of its own
         (``prepare_mesh``). Ranks that share another process (a remote
@@ -105,7 +137,8 @@ class _TorchBackend(Backend):
         hosts = {host for host, _ in procs}
         world = len(worker_group.workers)
         addr = "127.0.0.1" if len(hosts) == 1 else metas[0]["hostname"]
-        port = str(_free_port())
+        port = str(ray_tpu_torch.get(
+            worker_group.workers[0].torch_bind_store.remote(world)))
         env_refs = [
             worker.setup_env.remote({"MASTER_ADDR": addr, "MASTER_PORT": port,
                                      "RAY_TPU_WORLD_SIZE": str(world),
@@ -137,5 +170,5 @@ class TorchTrainer(DataParallelTrainer):
                          **kwargs)
 
 
-__all__ = ["TorchBackendConfig", "TorchTrainer",
+__all__ = ["TorchBackendConfig", "TorchTrainer", "bind_store",
            "distributed_init_if_needed", "prepare_mesh"]

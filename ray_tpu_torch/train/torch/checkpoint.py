@@ -12,16 +12,22 @@ optax's layout
 (``parallel.optim.to_optax_state``), and the step an int32 scalar. So a
 run either package saved, the other resumes.
 
-**Save** (:func:`save_train_state`, on every rank): each rank lays out
-its own blocks (``to_local()``, never the whole tensor) with their JAX
-specs and the mesh's axes in ``AXIS_ORDER``, writes its shard (a replica
-over ``dp``, ``sp`` or ``pp`` leaves it to its twin at index 0, which
-holds the same blocks), and sends the shard's record to rank 0 over the
-process group; rank 0 commits the manifest, which lists a shard for
-every rank, through its ``CheckpointManager`` only when every write
-succeeded. The process group carries the acks that the trainer's result
-channel carries in the JAX package; the trainer's gang waits for the
-task/actor runtime (``ROADMAP.md`` queue 1, item 7).
+**Save**: each rank lays out its own blocks (``to_local()``, never the
+whole tensor) with their JAX specs and the mesh's axes in ``AXIS_ORDER``
+(:func:`_layout`), by one of two routes:
+
+- inside a trainer's loop, ``session.report_sharded(metrics, state)``
+  (:func:`rank_blocks`, which this module sets as the session's layout
+  of a state of tensors), as in the JAX package: every rank writes its
+  shard, the record rides the result channel, and the trainer's executor
+  commits the manifest once every rank acked;
+- outside a trainer, :func:`save_train_state` on every rank: a replica
+  over ``dp``, ``sp`` or ``pp`` leaves its shard to its twin at index 0,
+  which holds the same blocks, the records go to rank 0 over the process
+  group, and rank 0 commits the manifest, which lists a shard for every
+  rank, through its ``CheckpointManager``.
+
+Either commits only when every write succeeded.
 
 **Restore** (:func:`restore_train_state`): where the saved specs and axis
 names are the state's own, each rank reads only the byte ranges of its
@@ -46,10 +52,12 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch._private import builtin_metrics, spill
+from ray_tpu_torch.air import session
 from ray_tpu_torch.models._params import (jax_specs, leaf_groups,
                                           specs_by_leaf, stacked)
 from ray_tpu_torch.parallel import optim
-from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_sizes
+from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, current_mesh,
+                                         current_rules, mesh_sizes)
 from ray_tpu_torch.parallel.sharding import (PartitionSpec, ShardingRules,
                                              local, shard_slices)
 from ray_tpu_torch.train._internal import sharded_checkpoint as sc
@@ -156,6 +164,61 @@ def _check_blocks(flat, specs, axes, rank, model) -> Dict[str, Tuple]:
     return shapes
 
 
+def _layout(state, mesh, rules, rank: int):
+    """``rank``'s blocks of ``state`` in the JAX package's tree, on the
+    host: (its blocks by path as numpy arrays, their specs in
+    ``normalize_spec``'s form, the tree's structure, each leaf's whole
+    shape, the mesh's axes). The one layout of both saves,
+    :func:`save_train_state` and ``session.report_sharded``."""
+    axes = _axes(mesh)
+    blocks, spec_tree = _trees(state, mesh, rules, "cpu")
+    flat, structure = sc.flatten_tree(blocks)
+    specs = {p: sc.normalize_spec(s, flat[p].dim())
+             for p, s in sc.flatten_like(structure, spec_tree).items()}
+    shapes = _check_blocks(flat, specs, axes, rank, state["params"])
+    return ({p: t.numpy() for p, t in flat.items()}, specs, structure,
+            shapes, axes)
+
+
+def _stand_ins(shapes, dtypes) -> Dict[str, np.ndarray]:
+    """Zero-stride stand-ins of the whole leaves: ``build_tree_meta`` reads
+    each leaf's shape and dtype only."""
+    return {p: np.broadcast_to(np.zeros((), dtypes[p]), shapes[p])
+            for p in shapes}
+
+
+def rank_blocks(state: Any, rank: int, world: int):
+    """What ``session.report_sharded`` writes of the port's train state
+    on rank ``rank`` of a gang of ``world`` (None for a state that is not
+    one): (the rank's blocks by path, stand-ins of the whole leaves for
+    ``build_tree_meta``, the tree's structure, the specs, the mesh's
+    axes). The mesh and rules are the current ones
+    (``parallel.mesh.registered_mesh``); with none the state lies whole
+    on one process. The gang's ranks are those of the process group."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(state, dict)
+            and isinstance(state.get("params"), torch.nn.Module)):
+        return None
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None and any(isinstance(p, DTensor)
+                            for p in state["params"].parameters()):
+        raise ValueError(
+            "this state is placed on a mesh: report it inside "
+            "parallel.mesh.registered_mesh(mesh, rules)")
+    if _rank_world() != (rank, world):
+        raise ValueError(
+            f"rank {rank} of a gang of {world} is rank "
+            f"{_rank_world()[0]} of {_rank_world()[1]} of its process "
+            f"group; a train state is reported by a gang whose ranks are "
+            f"the group's")
+    local, specs, structure, shapes, axes = _layout(state, mesh, rules, rank)
+    whole = _stand_ins(shapes, {p: a.dtype for p, a in local.items()})
+    return local, whole, structure, specs, axes
+
+
+session.set_state_layout(rank_blocks)
+
+
 def _writer(rank: int, axes, specs) -> int:
     """The rank that writes ``rank``'s shard: the one at index 0 of every
     axis that no leaf's spec in ``specs`` (``normalize_spec``'s) names, a
@@ -186,13 +249,8 @@ def save_train_state(state: Dict[str, Any],
     rank, world = _rank_world()
     if rank == 0 and manager is None:
         raise ValueError("rank 0 commits the save: pass its CheckpointManager")
-    axes = _axes(mesh)
     t0 = time.perf_counter()
-    blocks, spec_tree = _trees(state, mesh, rules, "cpu")
-    flat, structure = sc.flatten_tree(blocks)
-    specs = {p: sc.normalize_spec(s, flat[p].dim())
-             for p, s in sc.flatten_like(structure, spec_tree).items()}
-    shapes = _check_blocks(flat, specs, axes, rank, state["params"])
+    flat, specs, structure, shapes, axes = _layout(state, mesh, rules, rank)
     ctx = [None if manager is None else
            {"run": manager.run_name, "uri": manager.base_uri,
             "seq": manager.next_seq_base()}]
@@ -206,8 +264,7 @@ def save_train_state(state: Dict[str, Any],
         if writer != rank:
             record = {"seq": seq, "rank": rank, "written_by": writer}
         else:
-            record = sc.write_shard(backend, run, seq, rank,
-                                    {p: t.numpy() for p, t in flat.items()})
+            record = sc.write_shard(backend, run, seq, rank, flat)
             # The rank's whole share: the layout on the host and the write.
             record["write_s"] = time.perf_counter() - t0
     except spill.SpillFailure as exc:
@@ -243,13 +300,10 @@ def _commit(manager, seq, records, shapes, specs, structure, axes, extra,
         return None
     records = [dict(records[r["written_by"]], rank=r["rank"])
                if "written_by" in r else r for r in records]
-    # build_tree_meta reads each leaf's shape and dtype only: zero-stride
-    # stand-ins of the whole leaves.
     dtypes = {p: np.dtype(b["dtype"])
               for p, b in records[0]["blocks"].items()}
-    whole = {p: np.broadcast_to(np.zeros((), dtypes[p]), shapes[p])
-             for p in shapes}
-    meta = sc.build_tree_meta(whole, structure, specs, axes, extra)
+    meta = sc.build_tree_meta(_stand_ins(shapes, dtypes), structure, specs,
+                              axes, extra)
     t0 = time.perf_counter()
     handle = manager.register_sharded(seq, meta, records, metrics)
     if handle is None:
@@ -299,6 +353,25 @@ def restore_route(checkpoint, state, mesh=None,
     return "load_for_rank" if same else "restore_on_mesh"
 
 
+def _params_into(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy ``params`` (the JAX package's tree of the model's parameters,
+    each rank's own blocks) into ``model``'s parameters in place."""
+    optim.from_jax_tree(params,
+                        {n: local(p) for n, p in model.named_parameters()},
+                        leaf_groups(model))
+    return model
+
+
+def restore_params(model: torch.nn.Module, checkpoint,
+                   verify: Optional[bool] = None) -> torch.nn.Module:
+    """Copy the parameters of ``checkpoint``'s train state (a
+    ``ShardedCheckpoint``) into ``model``, a model on no mesh of the saved
+    config, in place, and return it. Only the parameters are placed: the
+    optimizer's state and the step are read and dropped, so a state of any
+    optimizer serves."""
+    return _params_into(model, checkpoint.load_full(verify)["params"])
+
+
 def restore_train_state(state: Dict[str, Any], checkpoint, mesh=None,
                         rules: Optional[ShardingRules] = None,
                         verify: Optional[bool] = None) -> Dict[str, Any]:
@@ -321,12 +394,9 @@ def restore_train_state(state: Dict[str, Any], checkpoint, mesh=None,
         flat, structure = sc.flatten_tree(placed)
         tree = sc.unflatten_tree(structure, {p: t.to_local()
                                              for p, t in flat.items()})
-    model = state["params"]
-    groups = leaf_groups(model)
-    optim.from_jax_tree(tree["params"],
-                        {n: local(p) for n, p in model.named_parameters()},
-                        groups)
-    optim.from_optax_state(tree["opt_state"], state["opt_state"], groups)
+    model = _params_into(state["params"], tree["params"])
+    optim.from_optax_state(tree["opt_state"], state["opt_state"],
+                           leaf_groups(model))
     step = tree["step"]
     if not isinstance(step, torch.Tensor):
         step = torch.from_numpy(np.array(step))
@@ -337,5 +407,5 @@ def restore_train_state(state: Dict[str, Any], checkpoint, mesh=None,
             "step": step.to(state["step"].device)}
 
 
-__all__ = ["latest_checkpoint", "restore_route", "restore_train_state",
-           "save_train_state"]
+__all__ = ["latest_checkpoint", "rank_blocks", "restore_params",
+           "restore_route", "restore_train_state", "save_train_state"]

@@ -1,13 +1,13 @@
 """Rank-side code of the port's multi-rank CPU tests.
 
 A :class:`RankPool` spawns ``world`` processes once; each joins a gloo
-process group through the port's own ``distributed_init_if_needed`` (from
-``MASTER_ADDR``/``MASTER_PORT``/``RAY_TPU_WORLD_SIZE``/``RAY_TPU_RANK``),
-runs on one thread at a lower priority (``nice`` 10, so that the timing
-tests of other pytest workers keep their share of the cores), and then
-runs every case the test process sends it,
-in order, returning picklable results (numpy arrays, floats). The ranks
-import ``torch`` and the port only: inputs come as numpy arrays.
+process group through the port's own ``distributed_init_if_needed``, as a
+gang's ranks do: rank 0 binds the group's store first (``bind_store``)
+and hands its port to the other ranks. Each rank runs on one thread at
+a lower priority (``nice`` 10, so that the timing tests of other pytest
+workers keep their share of the cores), and then runs every case the
+test process sends it, in order, returning picklable results (numpy
+arrays, floats). The ranks import ``torch`` and the port only: inputs come as numpy arrays.
 
 The pool first waits for every rank to start and join its group (up to
 ``START_TIMEOUT_S``: spawning and importing torch under the load of other
@@ -22,7 +22,6 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue
-import socket
 import traceback
 from typing import Any, Dict, List, Set
 
@@ -44,16 +43,16 @@ class RankPool:
 
     def _spawn(self) -> None:
         ctx = mp.get_context("spawn")
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
         self.broken = None
         self._ready = 0
         self._pending: Set[int] = set()
         self._inqs = [ctx.Queue() for _ in range(self.world)]
         self._outq = ctx.Queue()
+        # Rank 0 hands its store's port to the others (kept here until
+        # they have read it).
+        self._portq = ctx.Queue()
         self._procs = [ctx.Process(target=_serve, daemon=True,
-                                   args=(rank, self.world, port,
+                                   args=(rank, self.world, self._portq,
                                          self._inqs[rank], self._outq))
                        for rank in range(self.world)]
         for p in self._procs:
@@ -84,10 +83,11 @@ class RankPool:
             except queue.Empty:
                 self._break(f"no rank sent {what} within {wait} s")
                 continue
-            if got is None:
+            if not ok:
+                what = "to start" if got is None else f"case {got}"
+                self._break(f"rank {rank} failed {what}:\n{value}")
+            elif got is None:
                 self._ready += 1
-            elif not ok:
-                self._break(f"rank {rank} failed case {got}:\n{value}")
             else:
                 self._done.setdefault(got, {})[rank] = value
         self._pending.discard(cid)
@@ -117,15 +117,27 @@ class RankPool:
                 p.join(timeout=10)
 
 
-def _serve(rank, world, port, inq, outq) -> None:
-    os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                       "RAY_TPU_WORLD_SIZE": str(world),
-                       "RAY_TPU_RANK": str(rank)})
+def _serve(rank, world, portq, inq, outq) -> None:
     os.nice(10)
-    import torch
-    torch.set_num_threads(1)
-    from ray_tpu_torch.train.torch import distributed_init_if_needed
-    distributed_init_if_needed("cpu")
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from ray_tpu_torch.train.torch import (bind_store,
+                                               distributed_init_if_needed)
+        if rank == 0:
+            port = bind_store(world)
+            for _ in range(world - 1):
+                portq.put(port)
+        else:
+            port = portq.get(timeout=START_TIMEOUT_S)
+        os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                           "MASTER_PORT": str(port),
+                           "RAY_TPU_WORLD_SIZE": str(world),
+                           "RAY_TPU_RANK": str(rank)})
+        distributed_init_if_needed("cpu")
+    except Exception:  # noqa: BLE001 - reported to the test process
+        outq.put((None, rank, False, traceback.format_exc()))
+        return
     outq.put((None, rank, True, None))
     try:
         while True:

@@ -38,7 +38,8 @@ MANIFEST = [
     "_private/worker_process.py",
     "actor.py", "exceptions.py", "remote_function.py", "runtime_context.py",
     # Run lazily by init(), a call, a placement group, a worker process.
-    "_private/alerting.py", "_private/dataplane.py",
+    "_private/alerting.py", "_private/client_runtime.py",
+    "_private/dataplane.py",
     "_private/event_stats.py", "_private/events.py", "_private/flow.py",
     "_private/log_monitor.py", "_private/membership.py",
     "_private/memory_monitor.py", "_private/metrics_agent.py",
@@ -56,15 +57,28 @@ MANIFEST = [
     "air/config.py", "air/result.py", "air/session.py",
     "train/backend.py", "train/base_trainer.py",
     "train/_internal/backend_executor.py",
+    "train/_internal/checkpoint_manager.py",
     "train/_internal/worker_group.py",
+    # Data: datasets on the object store, fed to a train loop by
+    # iter_torch_batches.
+    "data/__init__.py", "data/aggregate.py", "data/block.py",
+    "data/dataset.py", "data/dataset_pipeline.py", "data/preprocessors.py",
+    "data/read_api.py", "data/tfrecord.py",
+    "data/extensions/__init__.py", "data/extensions/tensor_extension.py",
+    "data/_internal/__init__.py", "data/_internal/compute.py",
+    "data/_internal/plan.py", "data/_internal/shuffle.py",
+    "data/_internal/execution/__init__.py",
+    "data/_internal/execution/interfaces.py",
+    "data/_internal/execution/operators.py",
+    "data/_internal/execution/streaming_executor.py",
+    # Host-driven collectives between actors, the actor pool and the queue.
+    "util/actor_pool.py", "util/collective.py", "util/queue.py",
 ]
 
 # Modules (or ``module:name`` for one name) that a copied file imports
 # lazily and the port does not have yet, with the ROADMAP item that
 # copies them. None of them is on the trainer's path.
 NOT_YET_COPIED: Dict[str, str] = {
-    "ray_tpu_torch._private.client_runtime":
-        "item 7: client programs (init with a remote address)",
     "ray_tpu_torch._private.gcs_store":
         "item 7: the head's persistent store (RAY_TPU_gcs_store_path)",
     "ray_tpu_torch._private.runtime_env_conda":
@@ -98,6 +112,25 @@ _CARD_SET = ("CUDA reads CUDA_VISIBLE_DEVICES once per process, so a "
              "pooled worker serves only leases of the card set it first "
              "saw: a CPU task never lands in a process that holds a card, "
              "nor a GPU task in one that counted none")
+
+_DATA = ("the port's Data feeds torch tensors to TorchTrainer loops, "
+         "where the JAX package's feeds jax Arrays to JaxTrainer meshes")
+
+_FROM_TORCH = ("the port makes a Dataset from torch tensors (from_torch), "
+               "where the JAX package makes one from jax Arrays "
+               "(from_jax); numpy has no bfloat16, so a bfloat16 tensor "
+               "comes as its float32 values")
+
+_X32_WHY = ("the JAX package reduces in jnp, which with 64-bit types off "
+            "takes float64 as float32 and int64 as int32; the port "
+            "imports no JAX and reduces in numpy on those same types")
+
+_HOST = ("a torch tensor, on the card too, is accepted where the JAX "
+         "package accepts a device array, and copied to the host as "
+         "np.asarray copies one; the results are numpy arrays, as there, "
+         "and numpy has no bfloat16 without ml_dtypes, which the port "
+         "does not need: a bfloat16 tensor travels as its float32 values "
+         "and is reduced as float32")
 
 EDITS: Dict[str, List[Edit]] = {
     "_private/task_spec.py": [
@@ -406,6 +439,243 @@ parallelism is the mesh's job, not the worker count's).''',
                 "GPU", self.gpus_per_worker
                 if self.gpus_per_worker is not None else 1.0)''', _GPU),
     ],
+    "air/session.py": [
+        Edit('''        if axes_items is None:
+            axes_items = [("fsdp", self.world_size)]
+        flat, structure = sc.flatten_tree(state)
+        if specs is None:
+            specs = sc.default_specs(flat, axis=axes_items[0][0])
+        try:
+            local = sc.extract_local_shard(flat, specs, axes_items,
+                                           self.world_rank)
+            record = sc.write_shard(self._shard_backend, ctx["run"], seq,
+                                    self.world_rank, local)''',
+             '''        local = None
+        laid_out = (None if _state_layout is None
+                    else _state_layout(state, self.world_rank,
+                                       self.world_size))
+        if laid_out is not None:
+            # A train state that is not a tree of arrays, laid out by its
+            # owner: this rank's own blocks, and stand-ins of the whole
+            # leaves for build_tree_meta.
+            if specs is not None or axes_items is not None:
+                raise ValueError("a train state's specs and axes are its "
+                                 "mesh's and rules'; pass neither")
+            local, flat, structure, specs, axes_items = laid_out
+        if axes_items is None:
+            axes_items = [("fsdp", self.world_size)]
+        if local is None:
+            flat, structure = sc.flatten_tree(state)
+        if specs is None:
+            specs = sc.default_specs(flat, axis=axes_items[0][0])
+        try:
+            if local is None:
+                local = sc.extract_local_shard(flat, specs, axes_items,
+                                               self.world_rank)
+            record = sc.write_shard(self._shard_backend, ctx["run"], seq,
+                                    self.world_rank, local)''',
+             "the port's train state holds a model and the optimizer's "
+             "tensors, each rank only its blocks: the rank lays them out "
+             "in the JAX package's tree by itself (never gathering a "
+             "whole tensor), and the manifest's shapes come from whole "
+             "shapes, not whole arrays"),
+        Edit('''# One session per OS thread: train workers are actor threads, so''',
+             '''# How report_sharded lays out a train state that is not a tree of arrays:
+# (state, rank, world) -> None for a state it does not know, else (the
+# rank's blocks by path, whole leaves or stand-ins of their shape and
+# dtype, the tree's structure, the specs, the mesh's axes). The trainer
+# that owns such a state sets it (train.torch.checkpoint).
+_state_layout: Optional[Callable[[Any, int, int], Optional[tuple]]] = None
+
+
+def set_state_layout(layout) -> None:
+    global _state_layout
+    _state_layout = layout
+
+
+# One session per OS thread: train workers are actor threads, so''',
+             "the session stays blind to the port's state format: the "
+             "trainer that owns a state of tensors sets its layout here"),
+        Edit("from typing import Any, Dict, Optional\n",
+             "from typing import Any, Callable, Dict, Optional\n",
+             "the layout's type"),
+    ],
+    "data/__init__.py": [
+        Edit('''TPU-first analog of the reference's python/ray/data: blocks are pyarrow
+tables in the object store; transforms run as tasks/actor pools; the default
+batch format is numpy dicts ready for jax.device_put, and ``iter_jax_batches``
+/ ``Dataset.split`` feed per-host shards into a JaxTrainer mesh.''',
+             '''Analog of the reference's python/ray/data: blocks are pyarrow tables in
+the object store; transforms run as tasks/actor pools; the default batch
+format is numpy dicts, and ``iter_torch_batches`` / ``Dataset.split`` feed
+each rank's shard to a TorchTrainer loop as tensors on its device.''',
+             _DATA),
+        Edit('''from ray_tpu_torch.data.read_api import (from_arrow, from_items, from_jax,
+                                   from_numpy, from_pandas, range,''',
+             '''from ray_tpu_torch.data.read_api import (from_arrow, from_items,
+                                   from_numpy, from_pandas, from_torch, range,''',
+             _FROM_TORCH),
+        Edit('''"aggregate", "from_arrow", "from_items", "from_jax", "from_numpy",
+    "from_pandas",''',
+             '''"aggregate", "from_arrow", "from_items", "from_numpy",
+    "from_pandas", "from_torch",''', _FROM_TORCH),
+    ],
+    "data/dataset.py": [
+        Edit('''The TPU-first difference: the default
+batch format is a dict of host numpy arrays, ready for ``jax.device_put`` /
+per-host sharded ingest into a JaxTrainer mesh (iter_jax_batches).''',
+             '''The default batch format is a
+dict of host numpy arrays, and ``iter_torch_batches`` hands a train loop
+its shard as tensors on its device.''', _DATA),
+        Edit('''    def iter_jax_batches(self, *, batch_size: int = 256,
+                         dtypes: Optional[dict] = None,
+                         device=None, drop_last: bool = True,
+                         **kwargs) -> Iterator[Dict[str, Any]]:
+        """Batches as jax Arrays (device_put onto ``device``); the analog of
+        the reference's iter_torch_batches (dataset.py) for the JaxTrainer."""
+        import jax
+        for batch in self.iter_batches(batch_size=batch_size,
+                                       batch_format="numpy",
+                                       drop_last=drop_last, **kwargs):
+            out = {}
+            for k, v in batch.items():
+                if dtypes and k in dtypes:
+                    v = v.astype(dtypes[k])
+                out[k] = jax.device_put(v, device)
+            yield out
+
+    iter_torch_batches = iter_jax_batches  # capability alias
+''',
+             '''    def iter_torch_batches(self, *, batch_size: int = 256,
+                           dtypes: Optional[dict] = None,
+                           device=None, drop_last: bool = True,
+                           **kwargs) -> Iterator[Dict[str, Any]]:
+        """Batches as torch tensors on ``device`` (the card unless "cpu" is
+        asked for; raises without one), the reference's
+        iter_torch_batches (dataset.py). Each column keeps the dtype the
+        JAX package's batches have: a 64-bit one becomes its 32-bit
+        type, as jax.device_put makes it."""
+        import torch
+
+        from ray_tpu_torch._private.device import jax_dtype, resolve_device
+        dev = resolve_device(device)
+        for batch in self.iter_batches(batch_size=batch_size,
+                                       batch_format="numpy",
+                                       drop_last=drop_last, **kwargs):
+            out = {}
+            for k, v in batch.items():
+                if dtypes and k in dtypes:
+                    v = v.astype(dtypes[k])
+                v = np.asarray(v)
+                out[k] = torch.tensor(v.astype(jax_dtype(v.dtype),
+                                               copy=False), device=dev)
+            yield out
+''', "the port's batches are torch tensors on the rank's device, "
+             "where the JAX package's are jax Arrays; the JAX package "
+             "named iter_torch_batches an alias of iter_jax_batches"),
+        Edit('''    full Dataset does (iter_batches / iter_rows / iter_jax_batches)."""''',
+             '''    full Dataset does (iter_batches / iter_rows / iter_torch_batches)."""''',
+             _DATA),
+        Edit('''    def iter_jax_batches(self, **kwargs) -> Iterator[Dict[str, Any]]:
+        return self._materialize_shard().iter_jax_batches(**kwargs)''',
+             '''    def iter_torch_batches(self, **kwargs) -> Iterator[Dict[str, Any]]:
+        return self._materialize_shard().iter_torch_batches(**kwargs)''',
+             "a rank's shard gives its batches as torch tensors"),
+    ],
+    "data/read_api.py": [
+        Edit('''def from_jax(arrays, column: str = TENSOR_COL) -> Dataset:
+    """Device arrays → host Dataset (TPU-first addition)."""
+    if not isinstance(arrays, (list, tuple)):
+        arrays = [arrays]
+    return from_numpy([np.asarray(a) for a in arrays], column)''',
+             '''def from_torch(arrays, column: str = TENSOR_COL) -> Dataset:
+    """Tensors (on the card too) → host Dataset; bfloat16 as float32."""
+    from ray_tpu_torch._private.device import to_host
+    if not isinstance(arrays, (list, tuple)):
+        arrays = [arrays]
+    return from_numpy([to_host(a) for a in arrays], column)''',
+             _FROM_TORCH),
+    ],
+    "util/collective.py": [
+        Edit('''exchange the NCCL unique id), and the reduction itself runs in jax on the
+contributing host.''',
+             '''exchange the NCCL unique id), and the reduction itself runs in numpy on
+the contributing host, with the dtypes jnp gives (``_combine``).''',
+             _X32_WHY),
+        Edit('''    if combine in ("sum", "product", "min", "max"):
+        import jax.numpy as jnp
+        op = {"sum": jnp.add, "product": jnp.multiply,
+              "min": jnp.minimum, "max": jnp.maximum}[combine]
+        acc = jnp.asarray(ordered[0])
+        for p in ordered[1:]:
+            acc = op(acc, jnp.asarray(p))
+        return np.asarray(acc)''',
+             '''    if combine in ("sum", "product", "min", "max"):
+        from ray_tpu_torch._private.device import jax_dtype
+        op = {"sum": np.add, "product": np.multiply,
+              "min": np.minimum, "max": np.maximum}[combine]
+
+        def x32(a):
+            a = np.asarray(a)
+            return a.astype(jax_dtype(a.dtype), copy=False)
+
+        acc = x32(ordered[0])
+        for p in ordered[1:]:
+            acc = op(acc, x32(p))
+        return np.asarray(acc)''', _X32_WHY),
+        Edit('''def _apply_op(a: np.ndarray, b: np.ndarray, op: str) -> np.ndarray:''',
+             '''def _host(tensor) -> np.ndarray:
+    """``tensor`` as a numpy array: a torch tensor, on the card too, is
+    copied to the host, as np.asarray copies a JAX device array, and a
+    bfloat16 one comes as float32 (``device.to_host``)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(tensor, torch.Tensor):
+        from ray_tpu_torch._private.device import to_host
+        return to_host(tensor)
+    return np.asarray(tensor)
+
+
+def _apply_op(a: np.ndarray, b: np.ndarray, op: str) -> np.ndarray:''',
+             _HOST),
+        Edit("import threading\n", "import sys\nimport threading\n", _HOST),
+        Edit('''are immutable, so the result is returned)."""
+    arr = np.asarray(tensor)''',
+             '''are immutable, so the result is returned)."""
+    arr = _host(tensor)''', _HOST),
+        Edit('''    return _run(group_name, "allgather", np.asarray(tensor), "gather")''',
+             '''    return _run(group_name, "allgather", _host(tensor), "gather")''',
+             _HOST),
+        Edit('''                 np.asarray(tensor) if g.rank == src_rank else None,''',
+             '''                 _host(tensor) if g.rank == src_rank else None,''',
+             _HOST),
+        Edit('''    result = _run(group_name, f"reduce-{op}", np.asarray(tensor), op)''',
+             '''    result = _run(group_name, f"reduce-{op}", _host(tensor), op)''',
+             _HOST),
+        Edit('''    full = _run(group_name, f"reducescatter-{op}", np.asarray(tensor), op)''',
+             '''    full = _run(group_name, f"reducescatter-{op}", _host(tensor), op)''',
+             _HOST),
+        Edit('''    key = f"{group_name}:p2p:{g.rank}->{dst_rank}:{n}"
+    arr = np.asarray(tensor)''',
+             '''    key = f"{group_name}:p2p:{g.rank}->{dst_rank}:{n}"
+    arr = _host(tensor)''', _HOST),
+    ],
+    "train/_internal/checkpoint_manager.py": [
+        Edit('''def _current_session_id() -> str:
+    try:
+        from ray_tpu_torch._private.worker import global_worker
+        return global_worker.runtime.session_id
+    except Exception:  # noqa: BLE001 - no runtime up (unit tests)
+        return ""''',
+             '''def _current_session_id() -> str:
+    """The running runtime's session id, or "" with none up; asking
+    starts no runtime."""
+    from ray_tpu_torch._private.worker import global_worker
+    return getattr(global_worker._runtime, "session_id", "")''',
+             "the port saves train states outside a cluster "
+             "(save_train_state in a plain program, a CheckpointManager "
+             "per save): building a manager must not start a runtime, "
+             "where the JAX package's global_worker.runtime starts one"),
+    ],
     "train/_internal/worker_group.py": [
         Edit('''        import socket
         return {"rank": self.world_rank, "hostname": socket.gethostname(),
@@ -419,6 +689,12 @@ parallelism is the mesh's job, not the worker count's).''',
         return {"rank": self.world_rank, "hostname": socket.gethostname(),
                 "pid": os.getpid(), "gpu_ids": ray_tpu_torch.get_gpu_ids()}
 
+    def torch_bind_store(self, world_size: int) -> int:
+        """Rank 0's half of the rendezvous: the port its process group's
+        store is bound on, before the other ranks are told it."""
+        from ray_tpu_torch.train.torch import bind_store
+        return bind_store(world_size)
+
     def torch_distributed_init(self) -> None:
         """The process group over NCCL when this rank holds a card, over
         gloo when it was asked for the CPU (no GPU in its lease)."""
@@ -428,7 +704,8 @@ parallelism is the mesh's job, not the worker count's).''',
              "torch.distributed's process group takes the place of "
              "jax.distributed, on the device of the rank's lease; the "
              "backend reads each rank's pid to tell a gang that spans "
-             "processes"),
+             "processes, and has rank 0 bind the group's store before "
+             "the other ranks are told its port"),
         Edit('''                num_tpus=resources_per_worker.get("TPU", 0),
                 resources={k: v for k, v in resources_per_worker.items()
                            if k not in ("CPU", "TPU", "memory")},''',

@@ -323,8 +323,10 @@ def test_shard_parallelism_one_still_loads(tmp_path, monkeypatch):
 
 
 def test_session_backend_takes_its_id_from_the_uri(tmp_path, monkeypatch):
-    """The port has no runtime to name the session: ``session://<id>``
-    works, a bare ``session://`` raises."""
+    """``session://<id>`` names its session; a bare ``session://`` takes
+    the running runtime's, as the JAX package's manager does (the port's
+    is its copy), and raises with no runtime up, which building a manager
+    does not start."""
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     import tempfile
     monkeypatch.setattr(tempfile, "tempdir", None)
@@ -334,8 +336,20 @@ def test_session_backend_takes_its_id_from_the_uri(tmp_path, monkeypatch):
     assert handle.uri.startswith("session://s1/")
     assert _trees_equal(ShardedCheckpoint.from_manifest_uri(
         handle.uri).load_full(), _state_at(2))
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    ray_tpu_torch.shutdown()
     with pytest.raises(ValueError, match="session id"):
         CheckpointManager("session://", "sess")
+    assert global_worker._runtime is None
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    try:
+        sid = global_worker.runtime.session_id
+        assert sid
+        assert CheckpointManager("session://", "sess")._backend.session_id \
+            == sid
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,23 @@ def test_model_zoo_and_serve_batch_modules_are_scanned():
         assert f"ray_tpu_torch/{module}" in scanned, module
 
 
+def test_air_data_predictor_collective_and_example_modules_are_scanned():
+    """Data (each of its modules), the predictors, the host-driven
+    collectives and the examples, whose JAX package counterparts import
+    JAX lazily inside functions."""
+    scanned = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for module in ("data/__init__.py", "data/dataset.py", "data/block.py",
+                   "data/read_api.py", "data/_internal/compute.py",
+                   "data/_internal/execution/streaming_executor.py",
+                   "data/extensions/tensor_extension.py",
+                   "train/predictor.py", "util/collective.py",
+                   "util/actor_pool.py", "util/queue.py",
+                   "examples/gptj_finetune.py"):
+        assert f"ray_tpu_torch/{module}" in scanned, module
+    data = [f for f in scanned if f.startswith("ray_tpu_torch/data/")]
+    assert len(data) == 18, sorted(data)
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_ray_tpu(path):

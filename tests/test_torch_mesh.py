@@ -7,6 +7,8 @@ devices of ``tests/conftest.py``. Random shapes come from numpy with a
 fixed seed.
 """
 
+import socket
+
 import jax
 import numpy as np
 import pytest
@@ -307,6 +309,25 @@ def test_process_group_start_needs_all_or_none_of_its_variables(
     with pytest.raises(ValueError, match="MASTER_PORT"):
         ttrain.distributed_init_if_needed("cpu")
     assert not dist.is_initialized()
+
+
+def test_rank_zero_holds_its_store_port_until_its_group_takes_it(
+        monkeypatch):
+    """The port a gang meets on is bound by rank 0 before anyone is told
+    it: no other process can take it in between, and rank 0's group
+    starts on the store that holds it."""
+    port = ttrain.bind_store(1)
+    with socket.socket() as s, pytest.raises(OSError):
+        s.bind(("127.0.0.1", port))
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    monkeypatch.setenv("RAY_TPU_WORLD_SIZE", "1")
+    monkeypatch.setenv("RAY_TPU_RANK", "0")
+    ttrain.distributed_init_if_needed("cpu")
+    try:
+        assert dist.get_world_size() == 1 and ttrain._bound is None
+    finally:
+        dist.destroy_process_group()
 
 
 def test_prepare_mesh_starts_a_one_rank_group(monkeypatch):
