@@ -173,7 +173,7 @@ printed:
    pid another than this one's and its device cuda:0; ms per step with
    the gang beside phase 5's, the worker's start (fit to its loop's first
    line), its state's initialisation, save and restore seconds.
-   5m (last): the training side of AIR on the runtime, at gpt-410m (16 x
+   5m: the training side of AIR on the runtime, at gpt-410m (16 x
    1024, flash, selective remat, loss_chunk 2048). (a) The port's GPT-J
    example through its ``main()`` in one worker process on the card:
    (24, 24, 24) launches a step, finite losses, ms per step, tokens/s and
@@ -190,6 +190,32 @@ printed:
    allreduce (star and ring path) and allgather of float64 CUDA tensors,
    numpy's values, the JAX package's dtypes; a bfloat16 tensor reduced
    as its float32 values.
+   5n: Tune over ``TorchTrainer``: a ``Tuner`` of two trials of phase 5's
+   recipe (``_gang_loop``, 5 steps) at phase 5's lr and a quarter of it,
+   each trial's rank a worker process on half the card
+   (``resources_per_worker={"GPU": 0.5}``), both at once
+   (``max_concurrent_trials=2``), stopped by ``stop={"training_iteration":
+   3}``: (a) both workers on card 0 with overlapping steps; (b) the
+   phase-5-lr trial's losses phase 5's first three bit for bit, the other
+   trial's first loss phase 5's first; (c) each trial's last result at
+   iteration 3, no errors, the best result the lower final loss; (d) after
+   ``fit()`` both worker processes gone, the runtime's GPU free and the
+   card's free memory back within 1 GiB. Each trial's start, ms per step
+   and launches (added to the kernels line).
+   5o (last): RLlib's PPO learner on the card. It prints whether
+   gymnasium imports (the route). On both routes: one ``PPO._sgd`` of the
+   tuned cartpole-ppo recipe (1024 rows, 10 epochs of minibatches of 256,
+   lr 1e-3) on the card and on the CPU from the same parameters, per
+   minibatch and fused (the batch sent to the card once), within 1e-4; a
+   ``LearnerGroup`` with two remote learners, which lease half the card
+   each, its gradients and update the local learner's; the learner's
+   parameters on the card; cartpole-ppo trains 15 iterations with its
+   learner on the card and must pass tests/test_rllib.py's bar (last
+   episode_reward_mean > 45 and > 2.5 x the first), then saves and
+   restores with the same weights and greedy actions. Its environment is
+   gymnasium's CartPole-v1, or without gymnasium the same dynamics in
+   numpy (``_CartPole``). With gymnasium, the ported multi-agent
+   example's ``main()`` also learns its two opposing policies.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b", gpt-moe-8x410m's under
@@ -334,6 +360,32 @@ CKPT_STEPS = 2
 # from it. Its losses are phase 5's bit for bit: one process runs the same
 # kernels on the same inputs in the same order as another.
 GANG_STEPS, GANG_SAVE_AT = 5, 3
+# Phase 5n: Tune over TorchTrainer. Two trials of phase 5's recipe (each a
+# worker process on TUNE_GPUS of the card, both at once) at phase 5's lr
+# and a quarter of it, stopped by Tune after TUNE_STOP of the loop's
+# GANG_STEPS steps. The phase-5-lr trial's losses are phase 5's bit for
+# bit (as 5l's): the other trial shares the card but no tensor.
+TUNE_GPUS = 0.5
+TUNE_LRS = (1e-4, 1e-4 / 4)
+TUNE_STOP = 3
+# Free card memory after the Tuner's fit against before 5n: the trials'
+# worker processes and their states go with them (4f(d)'s bound).
+TUNE_FREE_SLACK = 1 << 30
+# Phase 5o: RLlib's learner on the card. The tuned cartpole-ppo
+# (ray_tpu/rllib/tuned_examples/__init__.py:34-40: 2 rollout workers, lr
+# 1e-3, batch 1024, 10 SGD iterations, minibatch 256, seed 7) trains
+# RLLIB_ITERS iterations with the learner on the card and must pass
+# tests/test_rllib.py:61-92's bar; its recipe's _sgd runs once on the card
+# and once on the CPU from the same parameters and batch, on both
+# schedules. fp32 with TF32 off: the weights after 40 Adam steps of lr
+# 1e-3 differ by summation order only, which Adam's division by |g| grows
+# step by step; a wrong gradient moves a weight by O(lr) at once.
+RLLIB_ITERS = 15
+RLLIB_LR, RLLIB_BATCH, RLLIB_SGD_ITERS, RLLIB_MINIBATCH = 1e-3, 1024, 10, 256
+RLLIB_SGD_TOL = 1e-4
+# 5o's LearnerGroup: two remote learners, which the group puts on half the
+# card each (the share follows from the learner count).
+RLLIB_REMOTE_LEARNERS, RLLIB_LEARNER_SHARE = 2, 0.5
 # Phase 5m: the training side of AIR on the runtime at gpt-410m, with the
 # JAX package's example's preset and sizes (examples/gptj_finetune.py:
 # 103-110: batch 16 x 1024, flash attention, selective remat, loss_chunk
@@ -3461,10 +3513,12 @@ def _process_start_time():
 
 
 def _gang_loop(config):
-    """Phase 5l's train loop, run by the gang's worker: phase 5's recipe
-    from seed 0, or from the trainer's checkpoint, to ``config["steps"]``;
-    a checkpoint after step ``config["save_at"]``. Reports each step's
-    loss, ms and (K1, K2, K3) launches, counted in this process."""
+    """Phase 5l's and 5n's train loop, run by the gang's worker: phase 5's
+    recipe at ``config["lr"]`` (phase 5's 1e-4 unless given) from seed 0,
+    or from the trainer's checkpoint, to ``config["steps"]``; a checkpoint
+    after step ``config["save_at"]`` where one is given. Reports each
+    step's loss, ms, wall-clock span and (K1, K2, K3) launches, counted in
+    this process."""
     t_loop = time.time()
     import torch
     import torch.distributed as dist
@@ -3482,7 +3536,8 @@ def _gang_loop(config):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = gpt.config(config["preset"], **config["overrides"])
-    opt = ts.memory_efficient_optimizer(learning_rate=1e-4)
+    opt = ts.memory_efficient_optimizer(
+        learning_rate=config.get("lr", 1e-4))
     t0 = time.perf_counter()
     state = ts.init_train_state(cfg, optimizer=opt, seed=0, device=device)
     loaded, restore_s = session.get_checkpoint(), None
@@ -3505,15 +3560,17 @@ def _gang_loop(config):
     _zero_counts(fa)
     for i in range(int(state["step"]), config["steps"]):
         counts0 = _counts(fa)
+        t_wall = time.time()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])  # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
         report = {"step": i + 1, "loss": loss, "ms": ms,
+                  "span": (t_wall, time.time()),
                   "launches": [b - a for a, b in zip(counts0, _counts(fa))],
                   **where}
         ckpt = None
-        if i + 1 == config["save_at"]:
+        if i + 1 == config.get("save_at"):
             t0 = time.perf_counter()
             ckpt = save_train_state(
                 state, CheckpointManager(config["dir"], "chip-smoke-5l"),
@@ -4060,6 +4117,393 @@ def phase_air(torch):
     return tuple(a + b + c for a, b, c in zip(example, training, predictor))
 
 
+# -- 5n. Tune over TorchTrainer ---------------------------------------------
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_tune(torch, ref):
+    """Two gpt-1.3b trials of phase 5's recipe under a Tuner, both on the
+    card at once, each in a worker process on TUNE_GPUS of it: (a) both
+    on card 0 with overlapping steps; (b) the phase-5-lr trial's losses
+    phase 5's bit for bit, the other's first loss phase 5's first; (c)
+    Tune's stop after TUNE_STOP iterations, no errors, the best result the
+    lower final loss; (d) after fit() no worker process remains, the card
+    is free in the runtime and its memory back. Returns the workers'
+    (K1, K2, K3) launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import TorchTrainer
+
+    cfg = gpt.config(TRAIN_PRESET, **TRAIN_OVERRIDES)
+    per_layer = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    on_card = DEVICE == "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    _worker_imports_this_checkout()
+    config = {"device": DEVICE, "preset": TRAIN_PRESET,
+              "overrides": TRAIN_OVERRIDES, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "steps": GANG_STEPS}
+    scaling = ScalingConfig(
+        num_workers=1, use_gpu=on_card,
+        resources_per_worker={"GPU": TUNE_GPUS} if on_card else None,
+        runtime_env={"worker_process": True})
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        t0 = time.time()
+        results = tune.Tuner(
+            TorchTrainer(_gang_loop, train_loop_config=config,
+                         scaling_config=scaling),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=2),
+            run_config=RunConfig(stop={"training_iteration": TUNE_STOP}),
+        ).fit()
+        fit_s = time.time() - t0
+        gpus = (ray_tpu_torch.available_resources().get("GPU", 0),
+                ray_tpu_torch.cluster_resources().get("GPU", 0))
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # (c) Tune's stop criterion ended both trials, and the best trial.
+    check(not results.errors, f"5n: trials failed: {results.errors}")
+    trials = sorted(results, key=lambda r: -r.config["lr"])
+    check([r.config["lr"] for r in trials] == list(TUNE_LRS),
+          f"5n: trials of lr {[r.config['lr'] for r in trials]}")
+    runs = [r.metrics_history for r in trials]
+    for r, run in zip(trials, runs):
+        check(r.metrics["training_iteration"] == TUNE_STOP
+              and [m["step"] for m in run] == list(range(1, TUNE_STOP + 1)),
+              f"5n (c): the lr {r.config['lr']} trial ended at iteration "
+              f"{r.metrics['training_iteration']} after steps "
+              f"{[m['step'] for m in run]}, not at {TUNE_STOP}")
+    best = results.get_best_result()
+    check(best.metrics["loss"] == min(r.metrics["loss"] for r in trials),
+          f"5n (c): the best result's loss {best.metrics['loss']} is not "
+          f"the lower of {[r.metrics['loss'] for r in trials]}")
+    # (b) losses against phase 5's.
+    losses = [[m["loss"] for m in run] for run in runs]
+    check(losses[0] == ref["losses"][:TUNE_STOP],
+          f"5n (b): the lr {TUNE_LRS[0]} trial's losses {losses[0]} are "
+          f"not phase 5's {ref['losses'][:TUNE_STOP]} bit for bit")
+    check(losses[1][0] == ref["losses"][0],
+          f"5n (b): the lr {TUNE_LRS[1]} trial's first loss "
+          f"{losses[1][0]} is not phase 5's {ref['losses'][0]}")
+    check(all(m["launches"] == per_layer for run in runs for m in run),
+          f"5n: launches per step (K1, K2, K3) "
+          f"{[[m['launches'] for m in run] for run in runs]}, expected "
+          f"{per_layer}")
+    # (a) both trials' workers on card 0 at once.
+    workers = [run[0] for run in runs]
+    check(workers[0]["pid"] != workers[1]["pid"]
+          and os.getpid() not in (workers[0]["pid"], workers[1]["pid"]),
+          f"5n (a): the trials ran in pids "
+          f"{[w['pid'] for w in workers]} (this process {os.getpid()})")
+    if on_card:
+        check(all(w["device"] == "cuda:0" and w["visible"] == "0"
+                  for w in workers),
+              f"5n (a): the workers trained on "
+              f"{[(w['device'], w['visible']) for w in workers]}")
+    spans = [(run[0]["span"][0], run[-1]["span"][1]) for run in runs]
+    overlap = min(e for _, e in spans) - max(b for b, _ in spans)
+    check(overlap > 0, f"5n (a): the trials' step windows {spans} do not "
+          f"overlap")
+    # (d) nothing left behind.
+    gone = [w["pid"] for w in workers if not _alive(w["pid"])]
+    check(len(gone) == 2, f"5n (d): worker processes "
+          f"{[w['pid'] for w in workers if _alive(w['pid'])]} outlived "
+          f"fit()")
+    check(gpus[0] == gpus[1], f"5n (d): {gpus[0]} of {gpus[1]} GPUs "
+          f"available after fit()")
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - TUNE_FREE_SLACK \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    free1 = torch.cuda.mem_get_info()[0]
+    check(free1 >= free0 - TUNE_FREE_SLACK,
+          f"5n (d): {free1 / 2**30:.2f} GiB free after fit() against "
+          f"{free0 / 2**30:.2f} GiB before 5n")
+
+    counts = tuple(sum(m["launches"][k] for run in runs for m in run)
+                   for k in range(3))
+    print(f"tune: {TRAIN_PRESET} under a Tuner over TorchTrainer, lr "
+          f"{list(TUNE_LRS)}, 2 trials at once, each a worker process on "
+          f"{TUNE_GPUS} GPU (pids {[w['pid'] for w in workers]}, "
+          f"CUDA_VISIBLE_DEVICES {[w['visible'] for w in workers]}, "
+          f"{[w['device'] for w in workers]}); fit() {fit_s:.1f} s; "
+          f"steps overlapping for {overlap:.2f} s; {CARD}")
+    for r, run in zip(trials, runs):
+        w = run[0]
+        print(f"tune: lr {r.config['lr']}: loop began {w['t_loop'] - t0:.2f}"
+              f" s after fit(), state in {w['init_s']:.2f} s; losses "
+              f"{[m['loss'] for m in run]}; ms per step "
+              f"{[round(m['ms'], 2) for m in run]}; launches (K1, K2, K3) "
+              f"{tuple(sum(m['launches'][k] for m in run) for k in range(3))}"
+              f"; {CARD}")
+    print(f"tune: (b) the lr {TUNE_LRS[0]} trial's losses bit-equal to "
+          f"phase 5's steps 1-{TUNE_STOP}; (c) best lr "
+          f"{best.config['lr']}; (d) both worker processes gone, "
+          f"{gpus[0]} of {gpus[1]} GPUs available, free card memory "
+          f"{free1 / 2**30:.2f} GiB ({free0 / 2**30:.2f} GiB before 5n)")
+    print(f"tune: launches in the workers (K1, K2, K3) {counts} over "
+          f"{sum(len(run) for run in runs)} steps = {tuple(per_layer)} per "
+          f"step; phase 5's same steps {[round(t, 2) for t in ref['step_ms'][:TUNE_STOP]]} ms")
+    return counts
+
+
+# -- 5o. RLlib's learner on the card ------------------------------------------
+
+def _rllib_batch(n, seed):
+    """A GAE-complete CartPole-shaped batch of ``n`` rows from ``seed``."""
+    from ray_tpu_torch.rllib import SampleBatch
+    rng = np.random.default_rng(seed)
+    return SampleBatch({
+        SampleBatch.OBS: rng.normal(size=(n, 4)).astype(np.float32),
+        SampleBatch.ACTIONS: rng.integers(0, 2, n),
+        SampleBatch.ACTION_LOGP: rng.normal(-0.7, 0.05, n).astype(
+            np.float32),
+        SampleBatch.ADVANTAGES: rng.normal(1.0, 3.0, n).astype(np.float32),
+        SampleBatch.VALUE_TARGETS: rng.normal(size=n).astype(np.float32)})
+
+
+def _rllib_spaces():
+    """CartPole's spaces as the port reads them, without gymnasium."""
+    return (types.SimpleNamespace(shape=(4,)),
+            types.SimpleNamespace(n=2, shape=()))
+
+
+class _CartPole:
+    """gymnasium's CartPole-v1 (its dynamics, rewards, termination and
+    500-step limit) in numpy, with the spaces read by their attributes:
+    5o's environment where gymnasium is not installed."""
+
+    def __init__(self, _config=None):
+        self.observation_space, self.action_space = _rllib_spaces()
+        self._rng = np.random.default_rng()
+        self._state = np.zeros(4)
+        self._steps = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-0.05, 0.05, 4)
+        self._steps = 0
+        return self._state.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self._state
+        force = 10.0 if int(action) == 1 else -10.0
+        cos, sin = np.cos(theta), np.sin(theta)
+        temp = (force + 0.05 * theta_dot ** 2 * sin) / 1.1
+        theta_acc = (9.8 * sin - cos * temp) / (
+            0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / 1.1))
+        x_acc = temp - 0.05 * theta_acc * cos / 1.1
+        self._state = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                                theta + 0.02 * theta_dot,
+                                theta_dot + 0.02 * theta_acc])
+        self._steps += 1
+        terminated = bool(abs(self._state[0]) > 2.4
+                          or abs(self._state[2]) > 12 * 2 * np.pi / 360)
+        return (self._state.astype(np.float32), 1.0, terminated,
+                self._steps >= 500, {})
+
+
+def _rllib_sgd(torch, device, backend):
+    """One ``PPO._sgd`` of the cartpole-ppo recipe on the policy of seed 7
+    on ``device``; returns the weights, metrics and seconds."""
+    from ray_tpu_torch.rllib import PPOConfig, SampleBatch, TorchPolicy
+    from ray_tpu_torch.rllib.algorithms import ppo
+
+    obs_space, act_space = _rllib_spaces()
+    policy = TorchPolicy(4, act_space, (64, 64), seed=7, obs_space=obs_space,
+                         device=device)
+    cfg = PPOConfig().training(
+        lr=RLLIB_LR, num_sgd_iter=RLLIB_SGD_ITERS,
+        sgd_minibatch_size=RLLIB_MINIBATCH, learner_backend=backend)
+    update, state = ppo.PPO._build_update(None, policy, cfg)
+    batch = _rllib_batch(RLLIB_BATCH, 3)
+    t0 = time.perf_counter()
+    _, metrics = ppo.PPO._sgd(types.SimpleNamespace(iteration=1), policy,
+                              update, state, SampleBatch(dict(batch)), cfg)
+    seconds = time.perf_counter() - t0
+    on = {t.device.type for t in _leaves(policy.params)}
+    return policy.get_weights(), metrics, seconds, on
+
+
+def _leaves(tree):
+    from ray_tpu_torch.rllib.policy.torch_policy import named_leaves
+    return list(named_leaves(tree).values())
+
+
+def _max_diff(a, b):
+    return max(float(np.max(np.abs(x - y)))
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_rllib(torch):
+    """PPO's learner on the card, on both routes: one _sgd on the card
+    against the CPU on both schedules; two remote learners sharing the
+    card against the local one; the tuned cartpole-ppo trained
+    RLLIB_ITERS iterations with its learner on the card (gymnasium's
+    CartPole-v1, or _CartPole where gymnasium is not installed), saved
+    and restored. With gymnasium, also the multi-agent example's main()."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (LearnerConfig, LearnerGroup,
+                                     MLPActorCriticModule, PPOLearner,
+                                     RLModuleSpec)
+    from ray_tpu_torch.rllib.core.learner_group import learner_options
+    try:
+        import gymnasium
+        route = f"gymnasium {gymnasium.__version__} (its CartPole-v1)"
+    except ImportError:
+        gymnasium = None
+        route = "no gymnasium (CartPole-v1's dynamics in numpy)"
+    print(f"rllib: route: {route}")
+
+    # One _sgd on the card and on the CPU, both schedules.
+    for backend in (None, "fused"):
+        t = {}
+        for device in (DEVICE, "cpu"):
+            t[device] = _rllib_sgd(torch, device, backend)
+        (w_card, m_card, s_card, on_card), (w_cpu, m_cpu, s_cpu, _) = \
+            t[DEVICE], t["cpu"]
+        diff = _max_diff(w_card, w_cpu)
+        schedule = "per minibatch" if backend is None else "fused"
+        check(on_card == {torch.device(DEVICE).type},
+              f"5o: the {schedule} learner's parameters are on {on_card}")
+        check(diff <= RLLIB_SGD_TOL,
+              f"5o: _sgd ({schedule}) on {DEVICE} against the CPU: the "
+              f"weights differ by {diff:.3e} > {RLLIB_SGD_TOL}")
+        gap = max(abs(m_card[k] - m_cpu[k]) for k in m_cpu)
+        check(set(m_card) == set(m_cpu) and gap <= RLLIB_SGD_TOL,
+              f"5o: _sgd ({schedule}) metrics {m_card} against {m_cpu}")
+        print(f"rllib: _sgd {schedule} ({RLLIB_SGD_ITERS} epochs of "
+              f"{RLLIB_BATCH} rows in minibatches of {RLLIB_MINIBATCH}): "
+              f"{s_card:.3f} s on {DEVICE}, {s_cpu:.3f} s on the CPU; "
+              f"weights within {diff:.3e}, metrics within {gap:.3e} of the "
+              f"CPU's (bound {RLLIB_SGD_TOL}); {CARD}")
+
+    # Remote learners sharing the card against the local learner.
+    obs_space, act_space = _rllib_spaces()
+    spec = RLModuleSpec(MLPActorCriticModule, obs_space, act_space,
+                        {"fcnet_hiddens": (64, 64)})
+    config = LearnerConfig(lr=RLLIB_LR, seed=7, device=DEVICE)
+    batch = {"obs": np.asarray(_rllib_batch(512, 5)["obs"]),
+             "actions": np.random.default_rng(6).integers(0, 2, 512),
+             "logp_old": np.full(512, -0.69, np.float32),
+             "advantages": np.random.default_rng(7).normal(
+                 size=512).astype(np.float32),
+             "value_targets": np.random.default_rng(8).normal(
+                 size=512).astype(np.float32)}
+    local = PPOLearner(spec, config).build()
+    check(all(t.device.type == torch.device(DEVICE).type
+              for t in _leaves(local.params)),
+          "5o: the local learner's parameters are not on the card")
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        share = learner_options(DEVICE, RLLIB_REMOTE_LEARNERS)
+        group = LearnerGroup(PPOLearner, spec, config,
+                             num_remote_learners=RLLIB_REMOTE_LEARNERS)
+        held = ray_tpu_torch.available_resources().get("GPU", 0)
+        remote_g, remote_m = ray_tpu_torch.get(
+            group._learners[0].compute_gradients.remote(batch))
+        local_g, local_m = local.compute_gradients(batch)
+        g_diff = _max_diff(remote_g, local_g)
+        group.update(batch)
+        local.update(batch)
+        w_diff = _max_diff(group.get_weights(), local.get_weights())
+        group.stop()
+        total = ray_tpu_torch.cluster_resources().get("GPU", 0)
+    finally:
+        ray_tpu_torch.shutdown()
+    check(DEVICE != "cuda" or (
+        share == {"num_gpus": RLLIB_LEARNER_SHARE}
+        and held == total - RLLIB_REMOTE_LEARNERS * RLLIB_LEARNER_SHARE),
+          f"5o: {RLLIB_REMOTE_LEARNERS} remote learners on {share}: "
+          f"{held} of {total} GPUs available while they lived")
+    check(g_diff <= RLLIB_SGD_TOL and remote_m.keys() == local_m.keys(),
+          f"5o: the remote learner's gradients differ by {g_diff:.3e}")
+    check(w_diff <= RLLIB_SGD_TOL,
+          f"5o: after one update the group's weights differ by {w_diff:.3e}")
+    print(f"rllib: LearnerGroup(PPOLearner, num_remote_learners="
+          f"{RLLIB_REMOTE_LEARNERS}) leasing {share} each ({held} of "
+          f"{total} GPUs free while they lived): gradients within "
+          f"{g_diff:.3e} of the local learner's on {DEVICE}, weights after "
+          f"one update within {w_diff:.3e}")
+
+    from ray_tpu_torch.rllib import PPOConfig
+    env = "CartPole-v1" if gymnasium is not None else _CartPole
+
+    def cartpole(workers):
+        return (PPOConfig().environment(env)
+                .rollouts(num_rollout_workers=workers)
+                .training(lr=RLLIB_LR, train_batch_size=RLLIB_BATCH,
+                          num_sgd_iter=RLLIB_SGD_ITERS,
+                          sgd_minibatch_size=RLLIB_MINIBATCH)
+                .resources(device=DEVICE).debugging(seed=7))
+
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        algo = cartpole(2).build()
+        check(all(t.device.type == torch.device(DEVICE).type
+                  for t in _leaves(algo.local_policy.params)),
+              "5o: the PPO learner's policy is not on the card")
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RLLIB_ITERS)]
+        train_s = time.perf_counter() - t0
+        rewards = [r["episode_reward_mean"] for r in results]
+        first, last = rewards[0], rewards[-1]
+        check(np.isfinite(last) and last > 45 and last > 2.5 * first,
+              f"5o: cartpole-ppo did not learn: rewards {rewards}")
+        path = algo.save(tempfile.mkdtemp(prefix="chip_smoke_rllib_"))
+        obs = np.random.default_rng(0).normal(size=(8, 4)).astype(
+            np.float32)
+        greedy = [algo.compute_single_action(o) for o in obs]
+        algo2 = cartpole(1).build()
+        algo2.restore(path)
+        shutil.rmtree(path, ignore_errors=True)
+        check(algo2.iteration == RLLIB_ITERS
+              and _max_diff(algo2.get_weights(), algo.get_weights()) == 0
+              and [algo2.compute_single_action(o) for o in obs] == greedy,
+              "5o: the restored algorithm differs from the saved one")
+        algo.stop()
+        algo2.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    print(f"rllib: cartpole-ppo ({route}), the learner on {DEVICE}: "
+          f"{RLLIB_ITERS} iterations in {train_s:.1f} s "
+          f"({[round(r['time_this_iter_s'], 2) for r in results]} s each); "
+          f"episode_reward_mean {[round(x, 1) for x in rewards]} (bar: "
+          f"last > 45 and > 2.5 x first); saved and restored, the same "
+          f"weights and greedy actions; {CARD}")
+
+    if gymnasium is None:
+        return
+    from ray_tpu_torch.examples import multi_agent_ppo
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        t0 = time.perf_counter()
+        res, actions = multi_agent_ppo.main([] if DEVICE == "cuda"
+                                            else ["--cpu"])
+        example_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+    check(actions == {"p0": 1, "p1": 0} and np.isfinite(
+        [res["p0/total_loss"], res["p1/total_loss"]]).all(),
+        f"5o: the multi-agent example's greedy actions {actions}")
+    print(f"rllib: the multi-agent example's main() on {DEVICE} in "
+          f"{example_s:.1f} s: joint reward {res['episode_reward_mean']:.1f}"
+          f"/20, greedy actions {actions}")
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -4099,7 +4543,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5m; returns the kernels line's rows."""
+    """Phases 2-5o; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -4146,6 +4590,8 @@ def _main_phases(torch):
     del zoo_ref
     k1_gang, k2_gang, k3_gang = _timed("5l", phase_gang, torch, ref)
     k1_air, k2_air, k3_air = _timed("5m", phase_air, torch)
+    k1_tune, k2_tune, k3_tune = _timed("5n", phase_tune, torch, ref)
+    _timed("5o", phase_rllib, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [
@@ -4154,15 +4600,17 @@ def _main_phases(torch):
          "launches": (k1_serve + k1_llama_serve + k1_llama_mesh + k1_train
                       + k1_mesh + k1_ckpt + k1_sel + k1_llama + k1_moe_serve
                       + k1_moe + k1_moe_mesh + k1_gang + k1_air
-                      + k1_deploy), **k1},
+                      + k1_deploy + k1_tune), **k1},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "88",
          "launches": (k2_train + k2_mesh + k2_ckpt + k2_sel + k2_llama
-                      + k2_moe + k2_moe_mesh + k2_gang + k2_air), **k2},
+                      + k2_moe + k2_moe_mesh + k2_gang + k2_air + k2_tune),
+         **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "131",
          "launches": (k3_train + k3_mesh + k3_ckpt + k3_sel + k3_llama
-                      + k3_moe + k3_moe_mesh + k3_gang + k3_air), **k3}]
+                      + k3_moe + k3_moe_mesh + k3_gang + k3_air + k3_tune),
+         **k3}]
 
 
 if __name__ == "__main__":

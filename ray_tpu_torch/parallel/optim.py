@@ -2,9 +2,10 @@
 
 The counterpart of the optax 0.2.6 transformations that
 ``ray_tpu/parallel/train_step.py`` builds its optimizers from, with the
-same arithmetic: ``chain`` of ``clip_by_global_norm``, ``adamw`` (via
-``scale_by_adam``, ``add_decayed_weights``, ``scale_by_learning_rate``)
-and ``adafactor`` (``scale_by_factored_rms``, ``clip_by_block_rms``,
+same arithmetic: ``chain`` of ``clip_by_global_norm``, ``adam`` and
+``adamw`` (via ``scale_by_adam``, ``add_decayed_weights``,
+``scale_by_learning_rate``; RLlib's learners take ``adam``) and
+``adafactor`` (``scale_by_factored_rms``, ``clip_by_block_rms``,
 ``scale_by_param_block_rms``), on ``warmup_cosine_decay_schedule``.
 
 Parameters, gradients and updates are dicts from a parameter's name to
@@ -259,6 +260,13 @@ def scale_by_learning_rate(learning_rate: Schedule, flip_sign: bool = True
         return updates, {"count": _increment(state["count"])}
 
     return GradientTransformation(lambda p, g: {"count": _count(p)}, update)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adam`` at a constant learning rate: Adam, then
+    ``scale(-learning_rate)``, as optax builds it for a float."""
+    return chain(scale_by_adam(b1, b2, eps), scale(-float(learning_rate)))
 
 
 def adamw(learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
@@ -580,7 +588,7 @@ def apply_updates(params: Params, updates: Params) -> None:
             local(p).add_(local(updates[n]).to(p.dtype))
 
 
-__all__ = ["GradientTransformation", "adafactor", "adamw",
+__all__ = ["GradientTransformation", "adafactor", "adam", "adamw",
            "add_decayed_weights", "apply_updates", "chain",
            "clip_by_block_rms", "clip_by_global_norm", "from_jax_tree",
            "from_optax_state", "optax_state_specs", "scale",

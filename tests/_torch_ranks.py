@@ -960,6 +960,38 @@ def zoo_uneven_vocab(mesh_cfg, rules_name):
     return None
 
 
+def rllib_learner(params0, batches, lr, small):
+    """``LearnerGroup(PPOLearner)`` in this process group (its mesh: dp over
+    the world) from the JAX learner's parameters: this rank's rows of the
+    first batch, each update's metrics and dropped rows, the weights after
+    them, and the error of a batch of ``small`` rows."""
+    import gymnasium as gym
+
+    from ray_tpu_torch.rllib.core import (LearnerConfig, LearnerGroup,
+                                          MLPActorCriticModule, PPOLearner,
+                                          RLModuleSpec)
+    spec = RLModuleSpec(MLPActorCriticModule,
+                        gym.spaces.Box(-1, 1, (4,), np.float32),
+                        gym.spaces.Discrete(2), {"fcnet_hiddens": (16,)})
+    group = LearnerGroup(PPOLearner, spec,
+                         LearnerConfig(lr=lr, device="cpu"))
+    group.set_weights(params0)
+    learner = group._learner
+    rows = learner._device_batch(batches[0])["obs"].numpy()
+    metrics, dropped = [], []
+    for batch in batches:
+        metrics.append(group.update(batch))
+        dropped.append(learner.last_dropped_rows)
+    error = None
+    try:
+        group.update({k: v[:small] for k, v in batches[0].items()})
+    except ValueError as e:
+        error = str(e)
+    return {"dp": group.mesh["dp"].size(), "rows": rows,
+            "metrics": metrics, "dropped": dropped,
+            "weights": group.get_weights(), "error": error}
+
+
 CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
                                   gpt_forward, remat_grads, vocab_stats,
                                   llama_forward,
@@ -970,4 +1002,5 @@ CASES = {f.__name__: f for f in (mesh_layout, gpt_train_step, seeded_init,
                                   zoo_ckpt_save, zoo_ckpt_restore,
                                   zoo_errors, zoo_dispatched,
                                   zoo_sum_outside_registered_mesh,
-                                  zoo_uneven_sequence, zoo_uneven_vocab)}
+                                  zoo_uneven_sequence, zoo_uneven_vocab,
+                                  rllib_learner)}

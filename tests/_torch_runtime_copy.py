@@ -88,12 +88,26 @@ MANIFEST = [
     "_private/state.py", "experimental/__init__.py",
     "experimental/internal_kv.py", "experimental/state/__init__.py",
     "experimental/state/api.py", "scripts/__init__.py", "scripts/cli.py",
+    # Tune: trials over function trainables and trainers (TorchTrainer).
+    "tune/search.py", "tune/schedulers.py", "tune/callbacks.py",
+    "tune/tuner.py", "tune/__init__.py",
+    # RLlib: the JAX-free modules the learner stack imports (the policy,
+    # modules, learners, workers, Algorithm and PPO are the port's own).
+    "rllib/policy/sample_batch.py", "rllib/connectors/__init__.py",
+    "rllib/connectors/connector.py", "rllib/env/__init__.py",
+    "rllib/env/external_env.py", "rllib/env/multi_agent_env.py",
+    "rllib/offline/__init__.py", "rllib/offline/json_reader.py",
+    "rllib/offline/json_writer.py", "rllib/evaluation/__init__.py",
+    "rllib/evaluation/worker_set.py", "rllib/algorithms/__init__.py",
+    "rllib/algorithms/algorithm_config.py", "rllib/core/__init__.py",
+    "rllib/models/__init__.py",
 ]
 
-# Modules (or ``module:name`` for one name) that a copied file imports
+# Modules (or ``module:name`` for one name) that a port file imports
 # lazily and the port does not have yet, with the ROADMAP item that
-# copies them. None of them is on the trainer's or a deployment's path:
-# the CLI imports them for its cluster commands only.
+# brings them. None of them is on the trainer's, a deployment's or PPO's
+# path: the CLI imports them for its cluster commands only, and
+# make_policy for RLlib's other policies.
 NOT_YET_COPIED: Dict[str, str] = {
     "ray_tpu_torch.dashboard":
         "item 18: the cluster tools (the CLI's dashboard command)",
@@ -106,6 +120,16 @@ NOT_YET_COPIED: Dict[str, str] = {
         "item 18: the cluster tools (the CLI's up and down commands)",
     "ray_tpu_torch._private.ray_perf":
         "item 18: the cluster tools (the CLI's perf command)",
+    "ray_tpu_torch.rllib.policy.q_policy":
+        "item 10b: RLlib's other algorithms (make_policy's \"q\" branch)",
+    "ray_tpu_torch.rllib.policy.sac_policy":
+        "item 10b: RLlib's other algorithms (make_policy's \"sac\" and "
+        "\"td3\" branches)",
+    "ray_tpu_torch.rllib.policy.r2d2_policy":
+        "item 10b: RLlib's other algorithms (make_policy's \"r2d2\" branch)",
+    "ray_tpu_torch.rllib.policy.rainbow_policy":
+        "item 10b: RLlib's other algorithms (make_policy's \"rainbow\" "
+        "branch)",
 }
 
 
@@ -174,7 +198,96 @@ _CONCURRENT = ("an async actor in a worker process (a serve replica "
                "a time, each in a fresh asyncio.run, so a decode engine "
                "could not admit a request into a running batch")
 
+_TPU_REQUEST = ("the port's accelerator resource is the CUDA card; a trial "
+                "that asked for a TPU would never be placed, so the request "
+                "fails at once")
+
+_FATE = ("the reference's kill takes the actors a trial created (its "
+         "trainer's gang) down with it; the port's trial actor is a thread "
+         "that its kill does not end, and the gang's worker processes would "
+         "keep their GPU lease and card memory: the exploited trial is "
+         "stopped first, and its trainer shuts its gang down before the "
+         "trial restarts")
+
+_DEVICE = ("the port's learner runs on the CUDA card unless the config asks "
+           "for the CPU (device=\"cpu\"; None is the card and raises without "
+           "one); the JAX package's resources() takes no setting")
+
+_GYM_LAZY = ("the learner's route must run where gymnasium is not installed: "
+             "only a Box has bounds, so gymnasium is imported only for an "
+             "action space with them, and a space read by its attributes "
+             "builds its connectors without it")
+
+_ITEM_10B = ("the policy client and server (client-server RL) come with "
+             "RLlib's other algorithms, ROADMAP item 10b")
+
 EDITS: Dict[str, List[Edit]] = {
+    "tune/__init__.py": [
+        Edit('''        elif key in ("tpu", "TPU", "num_tpus", "gpu", "GPU", "num_gpus"):
+            mapped["num_tpus"] = value''',
+             '''        elif key in ("gpu", "GPU", "num_gpus"):
+            mapped["num_gpus"] = value
+        elif key in ("tpu", "TPU", "num_tpus"):
+            raise ValueError(
+                f"with_resources: {key!r} asks for a TPU, and the port has "
+                "none; its accelerator resource is the CUDA card ('gpu')")''',
+             _GPU + "; " + _TPU_REQUEST),
+    ],
+    "tune/tuner.py": [
+        Edit('''                    scheduler.commit_exploit(trial.trial_id)
+                    ray_tpu_torch.kill(trial.actor)''',
+             '''                    scheduler.commit_exploit(trial.trial_id)
+                    # Stop the trial and wait for its end: a trainer's gang
+                    # is shut down, and its lease freed, before the kill.
+                    trial.actor.request_stop.remote()
+                    while not ray_tpu_torch.get(
+                            trial.actor.get_next_result.remote()).get(
+                                "finished"):
+                        pass
+                    ray_tpu_torch.kill(trial.actor)''', _FATE),
+    ],
+    "rllib/algorithms/algorithm_config.py": [
+        Edit('''        # framework (always jax here; kept for API parity)
+        self.framework_str: str = "jax"''',
+             '''        # framework (always jax here; kept for API parity)
+        self.framework_str: str = "jax"
+        # Where the learner's tensors live: None is the CUDA card (and
+        # raises without one), "cpu" must be asked for by name.
+        self.device: Any = None''', _DEVICE),
+        Edit('''    def resources(self, **_ignored) -> "AlgorithmConfig":
+        return self''',
+             '''    def resources(self, *, device: Any = "__unset__",
+                  **_ignored) -> "AlgorithmConfig":
+        if device != "__unset__":
+            self.device = device
+        return self''', _DEVICE),
+    ],
+    "rllib/connectors/connector.py": [
+        Edit('''    import gymnasium as gym
+    from ray_tpu_torch.rllib.models.catalog import ModelCatalog''',
+             '''    from ray_tpu_torch.rllib.models.catalog import ModelCatalog''',
+             _GYM_LAZY),
+        Edit('''    if policy_config.get("clip_actions", True) and isinstance(
+            action_space, gym.spaces.Box):
+        action_connectors.append(
+            ClipActions(action_space.low, action_space.high))''',
+             '''    if policy_config.get("clip_actions", True) and hasattr(
+            action_space, "low"):
+        import gymnasium as gym
+        if isinstance(action_space, gym.spaces.Box):
+            action_connectors.append(
+                ClipActions(action_space.low, action_space.high))''',
+             _GYM_LAZY),
+    ],
+    "rllib/env/__init__.py": [
+        Edit('''from ray_tpu_torch.rllib.env.policy_client import PolicyClient
+from ray_tpu_torch.rllib.env.policy_server_input import PolicyServerInput
+
+__all__ = ["ExternalEnv", "MultiAgentEnv", "PolicyClient",
+           "PolicyServerInput"]''',
+             '''
+__all__ = ["ExternalEnv", "MultiAgentEnv"]''', _ITEM_10B),
+    ],
     "_private/task_spec.py": [
         Edit('TPU_RESOURCE = "TPU"', 'TPU_RESOURCE = "GPU"', _GPU),
     ],

@@ -117,3 +117,20 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
     n_modules, loaded = proc.stdout.strip().splitlines()[-2:]
     assert int(n_modules) >= 10
     assert loaded == "[]", f"importing the port loaded {loaded}"
+
+
+def test_tune_and_rllib_modules_are_scanned():
+    """Tune (copied) and RLlib's learner stack, whose JAX package
+    counterparts import JAX and optax."""
+    scanned = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for module in ("tune/__init__.py", "tune/tuner.py", "tune/search.py",
+                   "tune/schedulers.py", "tune/callbacks.py",
+                   "rllib/__init__.py", "rllib/models/catalog.py",
+                   "rllib/policy/__init__.py", "rllib/policy/torch_policy.py",
+                   "rllib/core/rl_module.py", "rllib/core/learner.py",
+                   "rllib/core/learner_group.py",
+                   "rllib/evaluation/rollout_worker.py",
+                   "rllib/evaluation/multi_agent_worker.py",
+                   "rllib/algorithms/algorithm.py", "rllib/algorithms/ppo.py",
+                   "examples/multi_agent_ppo.py"):
+        assert f"ray_tpu_torch/{module}" in scanned, module

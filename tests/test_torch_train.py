@@ -611,9 +611,15 @@ def test_torch_trainer_gpt_e2e(port_cluster, tmp_path):
     np.testing.assert_allclose(losses, ref_losses, rtol=STEP_RTOL)
 
 
-def test_an_in_process_gang_gets_no_process_group(port_cluster):
+def test_an_in_process_gang_gets_no_process_group(port_cluster,
+                                                  monkeypatch):
     """As in ray_tpu/train/jax: the backend starts no group for ranks on
     threads of this process, and sets none of the rendezvous variables."""
+    # A JaxTrainer run earlier in this process leaves its ranks' variables
+    # in os.environ; the check is of what this backend sets.
+    for key in ("MASTER_ADDR", "MASTER_PORT", "RAY_TPU_WORLD_SIZE",
+                "RAY_TPU_RANK"):
+        monkeypatch.delenv(key, raising=False)
     def loop():
         import os
 
