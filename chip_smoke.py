@@ -127,8 +127,9 @@ printed:
    gradients). None of these models launches K1-K3. 5i: the same four on
    the 1-rank mesh, placed by ``init(..., mesh=, rules=)`` (ViT, BERT and
    T5 under ``tp_fsdp_rules()``, the UNet under ``dp_rules()``; FSDP2 and
-   DTensor parameters) from 5h's seed, their weights 5h's; 2 warm-up and 4
-   timed steps composed as a user composes them (the loss inside
+   DTensor parameters) from 5h's seed, their weights 5h's; 1 warm-up and 2
+   timed steps (5h's first 3 held) composed as a user composes them (the
+   loss inside
    ``registered_mesh``, backward, ``average_replicated_grads``, AdamW):
    ViT's and BERT's losses and first update 5h's bit for bit; the UNet's
    and T5's step-0 loss bit-equal, later losses within 1e-4 and the first
@@ -179,11 +180,12 @@ printed:
    (24, 24, 24) launches a step, finite losses, ms per step, tokens/s and
    approx_mfu. (b) The same recipe through ``TorchTrainer`` with its
    batches from ``iter_torch_batches`` of the rank's Data shard (5m(d)),
-   losses bit-equal to (a)'s; ``session.report_sharded`` after steps 2
-   and 4, committed by the trainer's executor; a second fit resumed from
-   step 2 bit-equal to the first; state bytes, save and restore seconds,
-   the worker's peak RSS. (c) ``TorchPredictor.from_checkpoint`` of the
-   final checkpoint in this process: per-sequence fp64 logit sums and
+   losses bit-equal to (a)'s (3 steps each); ``session.report_sharded``
+   after steps 2 and 3, committed by the trainer's executor; a second fit
+   resumed from step 2 bit-equal to the first; state bytes, save and
+   restore seconds, the worker's peak RSS. (c)
+   ``TorchPredictor.from_checkpoint`` of the final checkpoint in this
+   process: per-sequence fp64 logit sums and
    max abs bit-equal to the worker's; ``BatchPredictor`` over 8
    sequences bit-equal to the predictor's. (e) ``util.collective``
    between two worker-process actors on 0.5 GPU leases of the card:
@@ -202,7 +204,7 @@ printed:
    ``fit()`` both worker processes gone, the runtime's GPU free and the
    card's free memory back within 1 GiB. Each trial's start, ms per step
    and launches (added to the kernels line).
-   5o (last): RLlib's PPO learner on the card. It prints whether
+   5o: RLlib's PPO learner on the card. It prints whether
    gymnasium imports (the route). On both routes: one ``PPO._sgd`` of the
    tuned cartpole-ppo recipe (1024 rows, 10 epochs of minibatches of 256,
    lr 1e-3) on the card and on the CPU from the same parameters, per
@@ -216,6 +218,19 @@ printed:
    gymnasium's CartPole-v1, or without gymnasium the same dynamics in
    numpy (``_CartPole``). With gymnasium, the ported multi-agent
    example's ``main()`` also learns its two opposing policies.
+   5p (last): RLlib's other learners on the card, at the tuned examples'
+   widths and batches (``RLLIB_UPDATES``' note). (a) DQN (prioritized
+   3-step rows), SAC, CQL (its penalty in the critic's loss), TD3, A2C,
+   PG, IMPALA and APPO (V-trace), BC, MARWIL and ES's theta step, each
+   built on the CPU and on the card from one learner state
+   (``learner_state``), take the same updates on the same batch and noise
+   (drawn on the host): every state and metric within 1e-4 of the CPU's,
+   the card learner's parameters on the card, each update's ms on both.
+   (b) pendulum-sac trains 4 iterations (3 x 256 updates) on ``_Pendulum``
+   (gymnasium's Pendulum-v1 in numpy, or gymnasium's where installed):
+   finite losses, every action within +-2; cartpole-dqn trains 6
+   iterations with epsilon annealing, then is saved and restored with the
+   same weights and greedy actions; s per iteration of each.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b", gpt-moe-8x410m's under
@@ -225,7 +240,10 @@ printed:
 ``python3 chip_smoke.py --kernel-times ROOT`` runs phase 3 alone for the
 ``ray_tpu_torch`` of the checkout at ROOT (its kernels build under
 ROOT/build/), so that two trees' kernels are timed by one method in one
-call; it prints no result line.
+call; it prints no result line. ``python3 chip_smoke.py --phases
+zoo,air,rllib`` runs phases 1 and 2 and then the named groups of later
+phases alone ("zoo": 5h, 5i, 5k; "air": 5m; "rllib": 5o, 5p), with their
+checks; it prints no result line either.
 """
 
 from __future__ import annotations
@@ -386,13 +404,38 @@ RLLIB_SGD_TOL = 1e-4
 # 5o's LearnerGroup: two remote learners, which the group puts on half the
 # card each (the share follows from the learner count).
 RLLIB_REMOTE_LEARNERS, RLLIB_LEARNER_SHARE = 2, 0.5
+# Phase 5p: RLlib's other learners on the card, at the tuned examples'
+# widths and batches (ray_tpu/rllib/tuned_examples/__init__.py), nothing
+# cut: cartpole-dqn (:53-65: lr 8e-4, batch 64, 64x64, dueling double Q,
+# target sync every 128 steps, epsilon over 3000 steps, 32 updates an
+# iteration after 500 samples; 5p(a) adds prioritized 3-step rows),
+# pendulum-sac (:122-135: lr 3e-4, batch 256, 256x256, tau 0.005, 256
+# updates an iteration after 500 samples; CQL's penalty at its widths),
+# cartpole-a2c (:44-51: lr 2e-3, batch 512); the learners without a tuned
+# example at their configs' defaults (TD3 and the offline ones batch 256,
+# PG 1024 as tests/test_rllib.py trains it, IMPALA and APPO 512, ES 2
+# workers of 10 pairs). (a) Each learner's update runs on the card and on
+# the CPU from the same learner state, batch and noise (noise drawn on the
+# host), RLLIB_UPDATES updates each, held to RLLIB_SGD_TOL as 5o's are.
+# SAC's and CQL's actor head is scaled by RLLIB_HEAD_SCALE there: on a
+# row whose tanh saturates, their log-probability's log(1 - a^2 + 1e-6)
+# turns the card's and the CPU's last ulp of tanh into ~1e-1 (tests/
+# test_torch_rllib_q.py, HEAD_SCALE). (b) pendulum-sac trains
+# RLLIB_SAC_ITERS iterations on _Pendulum and cartpole-dqn RLLIB_DQN_ITERS
+# on _CartPole (or gymnasium's environments where it is installed), their
+# learners on the card; then cartpole-dqn is saved and restored.
+RLLIB_UPDATES = 2
+RLLIB_HEAD_SCALE = 0.25
+RLLIB_SAC_ITERS, RLLIB_DQN_ITERS = 4, 6
 # Phase 5m: the training side of AIR on the runtime at gpt-410m, with the
 # JAX package's example's preset and sizes (examples/gptj_finetune.py:
 # 103-110: batch 16 x 1024, flash attention, selective remat, loss_chunk
-# 2048; its default_optimizer at lr 1e-5 over AIR_STEPS steps). Nothing
-# cut. The example runs through its main() (5m(a)); the same recipe is
-# fed by Data, saved by session.report_sharded after AIR_SAVE_AT and
-# resumed (5m(b), 5m(d)); TorchPredictor and BatchPredictor score
+# 2048; its default_optimizer at lr 1e-5 over AIR_STEPS steps). Widths
+# and depth uncut; the run is cut to 3 steps (from 4), and the resumed
+# fit saves nothing (no check reads its save). The example runs through
+# its main() (5m(a)); the same recipe is fed by Data, saved by
+# session.report_sharded after AIR_SAVE_AT and resumed (5m(b), 5m(d));
+# TorchPredictor and BatchPredictor score
 # AIR_PROBE_ROWS sequences on its checkpoint (5m(c), 5m(d)); and two
 # actors on halves of the card allreduce and allgather CUDA tensors below
 # and above util.collective's _INLINE_LIMIT of 512 KiB (5m(e)).
@@ -400,7 +443,7 @@ AIR_PRESET = "gpt-410m"
 AIR_BATCH, AIR_SEQ = 16, 1024
 AIR_OVERRIDES = dict(attn_impl="flash", remat_policy="selective",
                      loss_chunk=2048)
-AIR_LR, AIR_STEPS, AIR_SAVE_AT = 1e-5, 4, (2, 4)
+AIR_LR, AIR_STEPS, AIR_SAVE_AT = 1e-5, 3, (2, 3)
 AIR_PROBE_ROWS = 4
 AIR_COLLECTIVE_SIZES = (1024, 1 << 17)  # float64: 8 KiB and 1 MiB
 # Phase 5j: gpt-410m (ray_tpu/models/gpt.py:118-120: 24 layers, d_model
@@ -476,6 +519,11 @@ UNET_TINY_TOL = 1e-4
 # weight decay 0 (optax.adam's arithmetic), lr 1e-4, 2 warm-up and 4 timed
 # steps; the batches are random, drawn on the card from a seeded generator.
 ZOO_WARMUP, ZOO_STEPS, ZOO_LR = 2, 4, 1e-4
+# Phases 5i and 5k run the same models on the 1-rank mesh for fewer steps
+# (cut from 5h's 2 + 4): their checks read the first steps (each loss
+# against 5h's or 5i's same step, the first update), 2 timed steps give
+# their ms per step beside 5h's.
+ZOO_MESH_WARMUP, ZOO_MESH_STEPS = 1, 2
 # Batches: DDPM's CIFAR-10 batch; ViT-B/16's 224x224 images; BERT's 512
 # tokens, 15% masked; T5's 512 encoder and 128 decoder tokens.
 ZOO_BATCH = {"ddpm-cifar": 128, "vit-b16": 64, "bert-base": 32,
@@ -1415,7 +1463,10 @@ def _profile(torch, fn, what, top, expect=(), ranges=(), convs=False,
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    averages = prof.key_averages()
+    # key_averages() parses every event in Python (tens of seconds for a
+    # t5-base step's): the counted run reads the raw events instead, and
+    # the averages are parsed only where they are read.
+    averages = (prof.key_averages() if stats is None or ranges else None)
     if stats is None:
         # The ranges also appear on the device's timeline, as annotations.
         events = [e for e in averages
@@ -3252,7 +3303,8 @@ def _zoo_mesh_state(torch, module, cfg, mesh, rules, seed):
 
 def _zoo_mesh_run(torch, mesh, case, rules_name, rules, mine, against):
     """One model of phase 5h (``case``) placed on the mesh by ``rules``
-    from 5h's seed, 2 warm-up and 4 timed steps and a profiled one: its
+    from 5h's seed, ZOO_MESH_WARMUP warm-up and ZOO_MESH_STEPS timed
+    steps and a profiled one: its
     weights against 5h's fingerprint, its losses and first update against
     ``mine`` (the reference run's, named ``against``): bit for bit for the
     models of ``ZOO_MESH_EXACT``, else the step-0 loss bit-equal, later
@@ -3286,8 +3338,9 @@ def _zoo_mesh_run(torch, mesh, case, rules_name, rules, mine, against):
         return _zoo_mesh_step(torch, module, loss_fn, model, params, opt,
                               opt_state, batch, mesh, rules)
     losses, step_s = [], []
-    for i in range(ZOO_WARMUP + ZOO_STEPS):
-        if i == ZOO_WARMUP:
+    t_run = time.perf_counter()
+    for i in range(ZOO_MESH_WARMUP + ZOO_MESH_STEPS):
+        if i == ZOO_MESH_WARMUP:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         opt_state, loss = step()
@@ -3312,7 +3365,7 @@ def _zoo_mesh_run(torch, mesh, case, rules_name, rules, mine, against):
           f"{n_diff} parameter elements differ from {against}'s, by up to "
           f"{max_diff:.3e}")
     if preset in ZOO_MESH_EXACT:
-        check(losses == mine["losses"] and n_diff == 0,
+        check(losses == mine["losses"][:len(losses)] and n_diff == 0,
               f"{preset}: the mesh's steps are not {against}'s bit for bit")
     else:
         check(losses[0] == mine["losses"][0]
@@ -3320,21 +3373,30 @@ def _zoo_mesh_run(torch, mesh, case, rules_name, rules, mine, against):
               and max_diff <= 2 * ZOO_LR,
               f"{preset}: the mesh's losses {losses} against {against}'s "
               f"{mine['losses']}, the first update up to {max_diff}")
-    timed = step_s[ZOO_WARMUP:]
+    timed = step_s[ZOO_MESH_WARMUP:]
     mean_s = statistics.mean(timed)
     stats = {}
+    steps_s = time.perf_counter() - t_run
 
     def profiled():
         nonlocal opt_state
         opt_state, _ = step()
+    t0 = time.perf_counter()
     device_ms = _profile(
         torch, profiled,
         f"one training step of {preset} on the mesh, {rules_name}", 10,
         convs=True, stats=stats)
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ops = _dispatched(torch, profiled)
+    ops_s = time.perf_counter() - t0
+    print(f"mesh: {preset}, {rules_name}: seconds: init {init_s:.1f}, "
+          f"{ZOO_MESH_WARMUP + ZOO_MESH_STEPS} steps and the checks "
+          f"{steps_s:.1f}, "
+          f"the profile {profile_s:.1f}, the operator count {ops_s:.1f}")
     added = ("not measured" if device_ms is None or mine["device_ms"]
              is None else f"{device_ms - mine['device_ms']:.3f} ms")
-    print(f"mesh: {preset}, {rules_name}: {ZOO_STEPS} timed steps "
+    print(f"mesh: {preset}, {rules_name}: {ZOO_MESH_STEPS} timed steps "
           f"{[round(t * 1e3, 2) for t in timed]} ms; mean "
           f"{mean_s * 1e3:.2f} ms/step ({against}: {mine['ms']:.2f}), "
           f"{items / mean_s:.2f} items/s ({against}: "
@@ -3374,10 +3436,12 @@ def phase_zoo_mesh(torch, mesh, ref):
         if preset == "t5-base":
             state = {"params": model, "opt_state": opt_state,
                      # the timed steps, the profile's two, the count's
-                     "step": torch.full((), ZOO_WARMUP + ZOO_STEPS + 3,
+                     "step": torch.full((), ZOO_MESH_WARMUP
+                                        + ZOO_MESH_STEPS + 3,
                                         dtype=torch.int32, device=DEVICE)}
             del model, opt_state
-            _zoo_checkpoint(torch, mesh, module, cfg, loss_fn, state, batch)
+            _timed("5i (t5-base's checkpoint)", _zoo_checkpoint, torch,
+                   mesh, module, cfg, loss_fn, state, batch)
             del state
         else:
             del model, opt_state
@@ -3903,6 +3967,7 @@ def phase_air_training(torch, example_losses):
         sc.manifest_filename("air", final.seq - 1)))
     check(at.extra == {"step": AIR_SAVE_AT[0]},
           f"5m(b): fit 1's first commit holds {at.extra}")
+    config = {**config, "save_at": ()}  # no check reads fit 2's save
     second, fit_second = fit("air-resumed", at)
 
     runs = [first.metrics_history, second.metrics_history]
@@ -4105,10 +4170,11 @@ def phase_air(torch):
     ray_tpu_torch.init(num_cpus=4)
     root = None
     try:
-        example, losses = phase_air_example(torch)
-        training, final, last, root = phase_air_training(torch, losses)
-        predictor = phase_air_predictor(torch, final, last)
-        phase_air_collective(torch)
+        example, losses = _timed("5m(a)", phase_air_example, torch)
+        training, final, last, root = _timed(
+            "5m(b)", phase_air_training, torch, losses)
+        predictor = _timed("5m(c)", phase_air_predictor, torch, final, last)
+        _timed("5m(e)", phase_air_collective, torch)
     finally:
         ray_tpu_torch.shutdown()
         if root is not None:
@@ -4316,6 +4382,48 @@ class _CartPole:
                 self._steps >= 500, {})
 
 
+class _Pendulum:
+    """gymnasium's Pendulum-v1 (its dynamics, reward, reset and 200-step
+    limit, in its arithmetic) in numpy, with the spaces read by their
+    attributes: 5p's environment where gymnasium is not installed."""
+
+    def __init__(self, _config=None):
+        high = np.array([1.0, 1.0, 8.0], dtype=np.float32)
+        self.observation_space = types.SimpleNamespace(
+            shape=(3,), low=-high, high=high, dtype=np.float32)
+        self.action_space = types.SimpleNamespace(
+            shape=(1,), low=np.full(1, -2.0, np.float32),
+            high=np.full(1, 2.0, np.float32), dtype=np.float32)
+        self._rng = np.random.default_rng()
+        self._state = np.zeros(2)
+        self._steps = 0
+
+    def _obs(self):
+        theta, thetadot = self._state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self._state = self._rng.uniform(low=-high, high=high)
+        self._steps = 0
+        return self._obs(), {}
+
+    def step(self, u):
+        th, thdot = self._state
+        u = np.clip(u, -2.0, 2.0)[0]
+        costs = ((th + np.pi) % (2 * np.pi) - np.pi) ** 2 + \
+            0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * 10.0 / (2 * 1.0) * np.sin(th)
+                            + 3.0 / (1.0 * 1.0 ** 2) * u) * 0.05
+        newthdot = np.clip(newthdot, -8, 8)
+        self._state = np.array([th + newthdot * 0.05, newthdot])
+        self._steps += 1
+        return self._obs(), -costs, False, self._steps >= 200, {}
+
+
 def _rllib_sgd(torch, device, backend):
     """One ``PPO._sgd`` of the cartpole-ppo recipe on the policy of seed 7
     on ``device``; returns the weights, metrics and seconds."""
@@ -4360,12 +4468,10 @@ def phase_rllib(torch):
                                      MLPActorCriticModule, PPOLearner,
                                      RLModuleSpec)
     from ray_tpu_torch.rllib.core.learner_group import learner_options
-    try:
-        import gymnasium
-        route = f"gymnasium {gymnasium.__version__} (its CartPole-v1)"
-    except ImportError:
-        gymnasium = None
-        route = "no gymnasium (CartPole-v1's dynamics in numpy)"
+    gymnasium = _gymnasium()
+    route = ("no gymnasium (CartPole-v1's dynamics in numpy)"
+             if gymnasium is None else
+             f"gymnasium {gymnasium.__version__} (its CartPole-v1)")
     print(f"rllib: route: {route}")
 
     # One _sgd on the card and on the CPU, both schedules.
@@ -4504,6 +4610,324 @@ def phase_rllib(torch):
           f"/20, greedy actions {actions}")
 
 
+# -- 5p. RLlib's other learners on the card -----------------------------------
+
+def _rllib_rows(n, seed, kind):
+    """``n`` seeded transitions shaped as CartPole's or Pendulum's, with
+    the rollout workers' columns (GAE fields and returns included):
+    episodes of 5-60 steps, ended by a termination or a truncation."""
+    from ray_tpu_torch.rllib import SampleBatch
+    rng = np.random.default_rng(seed)
+    ends = rng.random(n) < 0.05
+    term = ends & (rng.random(n) < 0.7)
+    obs_dim = 4 if kind == "cartpole" else 3
+    cols = {
+        SampleBatch.OBS: rng.normal(size=(n, obs_dim)),
+        SampleBatch.NEXT_OBS: rng.normal(size=(n, obs_dim)),
+        SampleBatch.ACTIONS: (rng.integers(0, 2, n) if kind == "cartpole"
+                              else rng.uniform(-2, 2, (n, 1))),
+        SampleBatch.REWARDS: rng.normal(size=n),
+        SampleBatch.TERMINATEDS: term * 1.0,
+        SampleBatch.TRUNCATEDS: (ends & ~term) * 1.0,
+        SampleBatch.EPS_ID: np.cumsum(ends),
+        SampleBatch.ACTION_LOGP: rng.normal(-0.7, 0.1, n),
+        SampleBatch.VF_PREDS: rng.normal(size=n),
+        SampleBatch.ADVANTAGES: rng.normal(1.0, 2.0, n),
+        SampleBatch.VALUE_TARGETS: rng.normal(size=n),
+        "returns": rng.normal(size=n)}
+    return SampleBatch({k: v.astype(np.float32) if v.dtype == np.float64
+                        else v for k, v in cols.items()})
+
+
+def _rllib_learners(offline):
+    """5p(a)'s learners: name -> (a fresh config; ``data(algo, i)``, the
+    i-th update's batch and noise, drawn on the host (from the CPU
+    learner's replay buffer for the replay learners) and handed to both
+    devices' learners; ``update(algo, data)``, one update, returning its
+    metrics), and the configs of pendulum-sac and cartpole-dqn.
+    ``offline`` has a directory of JSON rows of each environment
+    ("pendulum", "cartpole")."""
+    import torch
+
+    from ray_tpu_torch import rllib
+
+    cartpole = _CartPole if _gymnasium() is None else "CartPole-v1"
+    pendulum = _Pendulum if _gymnasium() is None else "Pendulum-v1"
+    sac_kw = dict(lr=3e-4, train_batch_size=256, tau=0.005,
+                  num_steps_sampled_before_learning_starts=500,
+                  num_train_batches_per_iteration=256,
+                  model={"fcnet_hiddens": [256, 256]})
+
+    def dqn():
+        return (rllib.DQNConfig().environment(cartpole)
+                .rollouts(num_rollout_workers=1, rollout_fragment_length=256)
+                .training(lr=8e-4, train_batch_size=64,
+                          num_steps_sampled_before_learning_starts=500,
+                          num_train_batches_per_iteration=32,
+                          target_network_update_freq=128,
+                          epsilon_timesteps=3000, dueling=True,
+                          double_q=True)
+                .debugging(seed=5))
+
+    def sac():
+        return (rllib.SACConfig().environment(pendulum)
+                .rollouts(num_rollout_workers=1, rollout_fragment_length=256)
+                .training(**sac_kw).debugging(seed=2))
+
+    def replay(batch):
+        def data(algo, i):
+            name = type(algo).__name__
+            if getattr(algo.config, "prioritized_replay", False):
+                mb = algo._buffer.sample(batch, beta=0.4)
+            else:
+                mb = algo._buffer.sample(batch)
+            gen = torch.Generator().manual_seed(20 + i)
+            if name == "DQN":
+                return mb, None
+            if name == "TD3":
+                return mb, torch.randn((batch, 1), generator=gen)
+            noise = {k: torch.randn((batch, 1), generator=gen)
+                     for k in ("target", "actor")}
+            if name == "CQL":
+                n = algo.config.num_ood_actions
+                noise["rand"] = torch.rand((n, batch, 1), generator=gen)
+                for k in ("cur", "next"):
+                    noise[k] = torch.randn((n, batch, 1), generator=gen)
+            return mb, noise
+
+        def update(algo, data):
+            mb, noise = data
+            if noise is None:  # DQN
+                return {"loss": algo.learn_on_batch(mb)[0]}
+            device = algo.local_policy.device
+            noise = (noise.to(device) if isinstance(noise, torch.Tensor)
+                     else {k: v.to(device) for k, v in noise.items()})
+            out = algo.learn_on_batch(mb, noise)
+            return {k: v for k, v in out.items() if k != "td"}
+        return data, update
+
+    def rows(n):
+        def update(algo, batch):
+            out = algo.learn_on_batch(
+                type(batch)({k: np.array(v) for k, v in batch.items()}))
+            if isinstance(out, tuple):  # MARWIL
+                return dict(zip(("loss", "policy_loss", "vf_loss"), out))
+            return out if isinstance(out, dict) else {"loss": out}
+        return (lambda algo, i: _rllib_rows(n, 40 + i, "cartpole")), update
+
+    def es_data(algo, i):
+        rng = np.random.default_rng(50 + i)
+        top = algo._noise.size - algo._theta.numel()
+        return (rng.integers(0, top, 20),
+                rng.normal(size=20).astype(np.float32),
+                rng.normal(size=20).astype(np.float32))
+
+    def es_update(algo, data):
+        grad, _ = algo.learn_on_returns(*data)
+        return {"grad_norm": float(np.linalg.norm(grad))}
+
+    def on(cfg, env=cartpole, workers=2):
+        return cfg.environment(env).rollouts(num_rollout_workers=workers)
+
+    return {
+        "dqn": (lambda: dqn().training(prioritized_replay=True, n_step=3),
+                *replay(64)),
+        "sac": (sac, *replay(256)),
+        "cql": (lambda: rllib.CQLConfig().environment(pendulum)
+                .training(**sac_kw).offline_data(input_=offline["pendulum"])
+                .debugging(seed=2), *replay(256)),
+        "td3": (lambda: on(rllib.TD3Config(), pendulum, 1).debugging(seed=3),
+                *replay(256)),
+        "a2c": (lambda: on(rllib.A2CConfig()).rollouts(
+            rollout_fragment_length=64).training(
+                lr=2e-3, train_batch_size=512).debugging(seed=11),
+                *rows(512)),
+        "pg": (lambda: on(rllib.PGConfig()).training(
+            lr=4e-3, train_batch_size=1024).debugging(seed=11), *rows(1024)),
+        "impala": (lambda: on(rllib.ImpalaConfig()).debugging(seed=2),
+                   *rows(512)),
+        "appo": (lambda: on(rllib.APPOConfig()).debugging(seed=13),
+                 *rows(512)),
+        "bc": (lambda: rllib.BCConfig().environment(cartpole).offline_data(
+            input_=offline["cartpole"]).debugging(seed=9), *rows(256)),
+        "marwil": (lambda: rllib.MARWILConfig().environment(cartpole)
+                   .offline_data(input_=offline["cartpole"])
+                   .debugging(seed=9), *rows(256)),
+        "es": (lambda: on(rllib.ESConfig()).debugging(seed=5), es_data,
+               es_update),
+    }, dqn, sac
+
+
+def _gymnasium():
+    try:
+        import gymnasium
+    except ImportError:
+        return None
+    return gymnasium
+
+
+def _rllib_update_pair(torch, make, data, update):
+    """One learner of 5p(a) built on the CPU and on the card, the card's
+    state the CPU's (learner_state); RLLIB_UPDATES updates of each on the
+    same data (a replay learner's buffer filled with the same rows, a
+    3-step transform of them for DQN). Returns (the largest difference of
+    the states and of the metrics, each device's ms of its last update,
+    where the card learner's parameters are)."""
+    from ray_tpu_torch.rllib.algorithms.learner_state import (
+        learner_state, load_learner_state)
+    from ray_tpu_torch.rllib.utils.replay_buffers import n_step_transform
+    algos = [make().resources(device=d).build() for d in ("cpu", DEVICE)]
+    try:
+        on = {t.device.type for t in _leaves(algos[1].local_policy.params)}
+        name = type(algos[0]).__name__
+        if name in ("SAC", "CQL"):
+            with torch.no_grad():
+                for t in _leaves(algos[0].local_policy.params["head"]):
+                    t.mul_(RLLIB_HEAD_SCALE)
+        if name in ("DQN", "SAC", "TD3"):
+            kind = "cartpole" if name == "DQN" else "pendulum"
+            fill = _rllib_rows(4096, 11, kind)
+            if name == "DQN":
+                fill = n_step_transform(fill, 3, algos[0].config.gamma)
+            for algo in algos:
+                algo._buffer.add(fill)
+        load_learner_state(algos[1], learner_state(algos[0]))
+        metrics, ms = [{}, {}], [0.0, 0.0]
+        for i in range(RLLIB_UPDATES):
+            args = data(algos[0], i)
+            for k, algo in enumerate(algos):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics[k] = update(algo, args)
+                torch.cuda.synchronize()
+                ms[k] = (time.perf_counter() - t0) * 1e3
+        states = [learner_state(a) for a in algos]
+    finally:
+        for algo in algos:
+            algo.stop()
+    diff = max(float(np.max(np.abs(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))))
+               for key in states[0]
+               for a, b in zip(_leaves(states[1][key]),
+                               _leaves(states[0][key])))
+    check(set(metrics[0]) == set(metrics[1]), f"5p: the metrics {metrics}")
+    gap = max(abs(float(metrics[1][k]) - float(metrics[0][k]))
+              for k in metrics[0])
+    return diff, gap, ms, on
+
+
+def phase_rllib_learners(torch):
+    """5p: (a) each learner's update on the card against the CPU; (b)
+    pendulum-sac and cartpole-dqn trained with their learners on the
+    card, cartpole-dqn saved and restored; (c) each update's ms and the
+    seconds per iteration."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import JsonWriter
+
+    gym = _gymnasium()
+    route = ("no gymnasium (_CartPole, _Pendulum)" if gym is None else
+             f"gymnasium {gym.__version__}")
+    print(f"rllib learners: route: {route}")
+    # Offline JSON for CQL (Pendulum's rows) and for BC and MARWIL
+    # (CartPole's), written by the port's JsonWriter.
+    offline = {}
+    for i, kind in enumerate(("pendulum", "cartpole")):
+        offline[kind] = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+        writer = JsonWriter(offline[kind])
+        writer.write(_rllib_rows(2048, 60 + i, kind))
+        writer.close()
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        learners, dqn, sac = _rllib_learners(offline)
+        rows = []
+        for name, (make, data, update) in learners.items():
+            diff, gap, ms, on = _rllib_update_pair(torch, make, data,
+                                                   update)
+            check(on == {torch.device(DEVICE).type},
+                  f"5p: {name}'s learner parameters are on {on}")
+            check(diff <= RLLIB_SGD_TOL and gap <= RLLIB_SGD_TOL,
+                  f"5p: {name} on {DEVICE} against the CPU: state within "
+                  f"{diff:.3e}, metrics within {gap:.3e} (bound "
+                  f"{RLLIB_SGD_TOL})")
+            rows.append((name, ms, diff, gap))
+        for path in offline.values():
+            shutil.rmtree(path, ignore_errors=True)
+        print(f"rllib learners: one update on {DEVICE} against the CPU from "
+              f"the same state, batch and noise ({RLLIB_UPDATES} each; ms of "
+              f"the last on the card, on the CPU; state and metrics within, "
+              f"bound {RLLIB_SGD_TOL}; {CARD}):")
+        for name, ms, diff, gap in rows:
+            print(f"  {name:7s} {ms[1]:9.3f} ms on {DEVICE} {ms[0]:9.3f} ms "
+                  f"on the CPU; state within {diff:.3e}, metrics within "
+                  f"{gap:.3e}")
+
+        algo = sac().resources(device=DEVICE).build()
+        check(all(t.device.type == torch.device(DEVICE).type for t in
+                  _leaves(algo.local_policy.params) + _leaves(
+                      algo._q_params)),
+              "5p: pendulum-sac's learner is not on the card")
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RLLIB_SAC_ITERS)]
+        sac_s = time.perf_counter() - t0
+        learned = [r for r in results if "critic_loss" in r]
+        acts = np.stack([r["actions"] for r in algo._buffer._rows])
+        greedy = np.stack([algo.compute_single_action(o) for o in
+                           np.random.default_rng(1).normal(size=(8, 3))])
+        algo.stop()
+        check(len(learned) == RLLIB_SAC_ITERS - 1 and all(
+            np.isfinite([r[k] for k in ("critic_loss", "actor_loss",
+                                        "alpha_loss", "alpha")]).all()
+            for r in learned),
+              f"5p: pendulum-sac's losses {learned}")
+        check(np.abs(acts).max() <= 2.0 and np.abs(greedy).max() <= 2.0,
+              f"5p: pendulum-sac's actions reach {np.abs(acts).max()}")
+        print(f"rllib learners: pendulum-sac ({route}), the learner on "
+              f"{DEVICE}: {RLLIB_SAC_ITERS} iterations in {sac_s:.1f} s "
+              f"({[round(r['time_this_iter_s'], 2) for r in results]} s "
+              f"each; {len(learned)} x 256 updates), critic_loss "
+              f"{[round(r['critic_loss'], 3) for r in learned]}, alpha "
+              f"{[round(r['alpha'], 4) for r in learned]}, "
+              f"episode_reward_mean "
+              f"{[round(r['episode_reward_mean'], 1) for r in results]}; "
+              f"{len(acts)} actions within +-2; {CARD}")
+
+        def cartpole_dqn():
+            return dqn().resources(device=DEVICE)
+
+        algo = cartpole_dqn().build()
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RLLIB_DQN_ITERS)]
+        dqn_s = time.perf_counter() - t0
+        eps = [r["epsilon"] for r in results]
+        losses = [r["loss"] for r in results if np.isfinite(r["loss"])]
+        check(all(a > b for a, b in zip(eps, eps[1:])) and losses
+              and results[-1]["gradient_steps_total"] == 32 * len(losses),
+              f"5p: cartpole-dqn's epsilon {eps}, losses {losses}")
+        path = algo.save(tempfile.mkdtemp(prefix="chip_smoke_rllib_dqn_"))
+        obs = np.random.default_rng(2).normal(size=(8, 4)).astype(np.float32)
+        greedy = [algo.compute_single_action(o) for o in obs]
+        algo2 = cartpole_dqn().build()
+        algo2.restore(path)
+        shutil.rmtree(path, ignore_errors=True)
+        check(algo2.iteration == RLLIB_DQN_ITERS
+              and _max_diff(algo2.get_weights()["params"],
+                            algo.get_weights()["params"]) == 0
+              and [algo2.compute_single_action(o) for o in obs] == greedy,
+              "5p: the restored cartpole-dqn differs from the saved one")
+        algo.stop()
+        algo2.stop()
+        print(f"rllib learners: cartpole-dqn ({route}), the learner on "
+              f"{DEVICE}: {RLLIB_DQN_ITERS} iterations in {dqn_s:.1f} s "
+              f"({[round(r['time_this_iter_s'], 2) for r in results]} s "
+              f"each), epsilon {[round(e, 3) for e in eps]}, loss "
+              f"{[round(x, 4) for x in losses]}, episode_reward_mean "
+              f"{[round(r['episode_reward_mean'], 1) for r in results]}; "
+              f"saved and restored, the same weights and greedy actions "
+              f"{greedy}; {CARD}")
+    finally:
+        ray_tpu_torch.shutdown()
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -4524,10 +4948,41 @@ def kernel_times(root):
                                        "flash_bwd_dkv": k3}}))
 
 
+def some_phases(groups):
+    """Phases 1 and 2, then the groups of later phases named in
+    ``groups``: "zoo" (5h, 5i on the 1-rank mesh, 5k), "air" (5m),
+    "rllib" (5o, 5p). Each phase's seconds and checks as in the whole
+    run; prints no result line."""
+    torch, _ = phase_environment()
+    _timed("2", phase_build)
+    unknown = set(groups) - {"zoo", "air", "rllib"}
+    check(not unknown, f"no phase group {sorted(unknown)}")
+    try:
+        if "zoo" in groups:
+            from ray_tpu_torch.parallel import MeshConfig
+            from ray_tpu_torch.train.torch import prepare_mesh
+            mesh = prepare_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1))
+            zoo_ref = _timed("5h", phase_zoo_training, torch)
+            _timed("5h (tiny)", phase_zoo_small, torch)
+            zoo_ref = _timed("5i", phase_zoo_mesh, torch, mesh, zoo_ref)
+            _timed("5k", phase_zoo_context_parallel, torch, mesh, zoo_ref)
+        if "air" in groups:
+            _timed("5m", phase_air, torch)
+        if "rllib" in groups:
+            _timed("5o", phase_rllib, torch)
+            _timed("5p", phase_rllib_learners, torch)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
 def main():
     if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
         return kernel_times(sys.argv[2])
-    check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernel-times ROOT]")
+    if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+        return some_phases(sys.argv[2].split(","))
+    check(len(sys.argv) == 1,
+          "usage: chip_smoke.py [--kernel-times ROOT | --phases GROUPS]")
     t_start = time.perf_counter()
     torch, name = phase_environment()
     try:
@@ -4543,7 +4998,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5o; returns the kernels line's rows."""
+    """Phases 2-5p; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -4592,6 +5047,7 @@ def _main_phases(torch):
     k1_air, k2_air, k3_air = _timed("5m", phase_air, torch)
     k1_tune, k2_tune, k3_tune = _timed("5n", phase_tune, torch, ref)
     _timed("5o", phase_rllib, torch)
+    _timed("5p", phase_rllib_learners, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [

@@ -441,6 +441,10 @@ def _moments(tensors: Params, groups: Groups, drop=None) -> Dict[str, Any]:
             raise ValueError(f"{key}: a moment for some of its layers only")
         return _Leaf(have or None, stacked(key, names), key,
                      None if drop is None or not have else drop(names[0]))
+    if list(groups) == [""]:
+        # The parameters are one bare leaf (RLlib's SAC temperature, ES's
+        # flat vector): optax's moment is the leaf itself, not a tree.
+        return leaf("", groups[""])
     return nest(groups, leaf)
 
 

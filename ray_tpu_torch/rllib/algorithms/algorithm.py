@@ -5,8 +5,9 @@ learner's copies) live on ``config.device``, the CUDA card unless the
 config asks for the CPU (``.resources(device="cpu")``); its rollout
 workers sample on the CPU. ``get_weights`` and ``save`` write the JAX
 package's numpy tree, so an ``algorithm_state.pkl`` of either package
-restores in the other. The greedy actions of the value-based, SAC and
-recurrent policies come with them (ROADMAP item 10b).
+restores in the other. The greedy action is the argmax of a value-based
+policy's Q values, a SAC or TD3 actor's mean, and otherwise the
+actor-critic's logits' argmax or mean.
 
 Analog of the reference's rllib/algorithms/algorithm.py:150 (step :744,
 training_step :1322): owns a WorkerSet and a learner policy; each train()
@@ -216,9 +217,18 @@ class Algorithm:
             gen = policy.make_generator(int(time.monotonic_ns()) % (2**31))
             a, _, _ = policy.compute_actions(obs, gen)
             return a[0] if policy.discrete is False else int(a[0])
+        x = as_tensor(obs, policy.device)
+        if hasattr(policy, "q_values"):  # value-based: greedy = argmax Q
+            with torch.no_grad():
+                q = policy.q_values(policy.params, x)
+            return int(q.argmax(-1)[0])
+        if hasattr(policy, "dist_params"):  # SAC: mean action
+            with torch.no_grad():
+                mu, _ = policy.dist_params(policy.params, x)
+            a = np.tanh(mu.cpu().numpy()[0])
+            return policy.low + (a + 1.0) * 0.5 * (policy.high - policy.low)
         with torch.no_grad():
-            logits = policy.logits(policy.params,
-                                   as_tensor(obs, policy.device))
+            logits = policy.logits(policy.params, x)
         logits = logits.cpu().numpy()
         if policy.discrete:
             return int(logits.argmax(-1)[0])

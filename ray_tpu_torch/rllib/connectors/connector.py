@@ -131,10 +131,8 @@ def get_connectors(policy_config: Dict[str, Any], obs_space, action_space
             obs_connectors.append(MeanStdFilter())
     action_connectors: List[Connector] = []
     if policy_config.get("clip_actions", True) and hasattr(
-            action_space, "low"):
-        import gymnasium as gym
-        if isinstance(action_space, gym.spaces.Box):
-            action_connectors.append(
-                ClipActions(action_space.low, action_space.high))
+            action_space, "low") and hasattr(action_space, "high"):
+        action_connectors.append(
+            ClipActions(action_space.low, action_space.high))
     return (ObsConnectorPipeline(obs_connectors),
             ActionConnectorPipeline(action_connectors))

@@ -57,10 +57,13 @@ def init_optimizer(optimizer: optim.GradientTransformation, params) -> Any:
 def loss_grads(loss_fn, params, batch) -> Tuple[Dict[str, torch.Tensor],
                                                 Dict[str, torch.Tensor]]:
     """``jax.value_and_grad(loss_fn, has_aux=True)``: the gradients by
-    parameter name, and the metrics with ``total_loss``."""
+    parameter name (zeros for a parameter the loss does not reach, such
+    as the value head under PG's or BC's loss), and the metrics with
+    ``total_loss``."""
     named = named_leaves(params)
     loss, metrics = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, list(named.values()))
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True, materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["total_loss"] = loss.detach()
     return dict(zip(named, grads)), metrics

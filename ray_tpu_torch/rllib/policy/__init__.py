@@ -1,11 +1,12 @@
 """Policy registry: maps the ``policy_class`` name in a policy config to
 an implementation (the port of ``ray_tpu/rllib/policy/__init__.py``).
 
-"actor_critic" is :class:`TorchPolicy`, on ``device`` (None is the CUDA
-card). The value-based and soft actor-critic policies ("q", "sac", "td3",
-"r2d2", "rainbow") come with RLlib's other algorithms (ROADMAP item 10b):
-their modules are not in the port yet, and asking for one raises
-``ModuleNotFoundError``.
+Every policy lives on ``device`` (None is the CUDA card): "actor_critic"
+is :class:`TorchPolicy`, "q" :class:`QPolicy`, "sac" and "td3"
+:class:`SACPolicy` and :class:`TD3Policy`. The recurrent and
+distributional policies ("r2d2", "rainbow") come with the rest of RLlib
+(ROADMAP item 10b): their modules are not in the port yet, and asking for
+one raises ``ModuleNotFoundError``.
 """
 
 from __future__ import annotations
@@ -53,10 +54,12 @@ def make_policy(policy_config: Dict[str, Any], obs_space, action_space,
             device=device)
     if name == "q":
         from ray_tpu_torch.rllib.policy.q_policy import QPolicy
-        return QPolicy(obs_space, action_space, model_config, seed=seed)
+        return QPolicy(obs_space, action_space, model_config, seed=seed,
+                       device=device)
     if name == "sac":
         from ray_tpu_torch.rllib.policy.sac_policy import SACPolicy
-        return SACPolicy(obs_space, action_space, model_config, seed=seed)
+        return SACPolicy(obs_space, action_space, model_config, seed=seed,
+                         device=device)
     if name == "r2d2":
         from ray_tpu_torch.rllib.policy.r2d2_policy import R2D2Policy
         return R2D2Policy(obs_space, action_space, model_config,
@@ -67,5 +70,6 @@ def make_policy(policy_config: Dict[str, Any], obs_space, action_space,
                              seed=seed)
     if name == "td3":
         from ray_tpu_torch.rllib.policy.sac_policy import TD3Policy
-        return TD3Policy(obs_space, action_space, model_config, seed=seed)
+        return TD3Policy(obs_space, action_space, model_config, seed=seed,
+                         device=device)
     raise ValueError(f"Unknown policy_class {name!r}")

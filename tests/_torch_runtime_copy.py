@@ -101,6 +101,12 @@ MANIFEST = [
     "rllib/evaluation/worker_set.py", "rllib/algorithms/__init__.py",
     "rllib/algorithms/algorithm_config.py", "rllib/core/__init__.py",
     "rllib/models/__init__.py",
+    # RLlib's replay buffers (DQN, SAC, TD3, CQL), and the algorithms
+    # that are a configuration of a ported one (their learners are DQN's
+    # and TD3's): JAX-free.
+    "rllib/utils/__init__.py", "rllib/utils/replay_buffers.py",
+    "rllib/algorithms/simple_q.py", "rllib/algorithms/apex_dqn.py",
+    "rllib/algorithms/ddpg.py",
 ]
 
 # Modules (or ``module:name`` for one name) that a port file imports
@@ -120,11 +126,6 @@ NOT_YET_COPIED: Dict[str, str] = {
         "item 18: the cluster tools (the CLI's up and down commands)",
     "ray_tpu_torch._private.ray_perf":
         "item 18: the cluster tools (the CLI's perf command)",
-    "ray_tpu_torch.rllib.policy.q_policy":
-        "item 10b: RLlib's other algorithms (make_policy's \"q\" branch)",
-    "ray_tpu_torch.rllib.policy.sac_policy":
-        "item 10b: RLlib's other algorithms (make_policy's \"sac\" and "
-        "\"td3\" branches)",
     "ray_tpu_torch.rllib.policy.r2d2_policy":
         "item 10b: RLlib's other algorithms (make_policy's \"r2d2\" branch)",
     "ray_tpu_torch.rllib.policy.rainbow_policy":
@@ -214,9 +215,9 @@ _DEVICE = ("the port's learner runs on the CUDA card unless the config asks "
            "one); the JAX package's resources() takes no setting")
 
 _GYM_LAZY = ("the learner's route must run where gymnasium is not installed: "
-             "only a Box has bounds, so gymnasium is imported only for an "
-             "action space with them, and a space read by its attributes "
-             "builds its connectors without it")
+             "only a Box has bounds, so an action space with low and high "
+             "clips as a Box, and a space read by its attributes builds its "
+             "connectors without gymnasium")
 
 _ITEM_10B = ("the policy client and server (client-server RL) come with "
              "RLlib's other algorithms, ROADMAP item 10b")
@@ -272,11 +273,9 @@ EDITS: Dict[str, List[Edit]] = {
         action_connectors.append(
             ClipActions(action_space.low, action_space.high))''',
              '''    if policy_config.get("clip_actions", True) and hasattr(
-            action_space, "low"):
-        import gymnasium as gym
-        if isinstance(action_space, gym.spaces.Box):
-            action_connectors.append(
-                ClipActions(action_space.low, action_space.high))''',
+            action_space, "low") and hasattr(action_space, "high"):
+        action_connectors.append(
+            ClipActions(action_space.low, action_space.high))''',
              _GYM_LAZY),
     ],
     "rllib/env/__init__.py": [

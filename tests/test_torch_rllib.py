@@ -489,12 +489,15 @@ def test_multi_agent_config_validation():
 
 def test_the_learner_defaults_to_the_card(monkeypatch):
     """Without a card, the default device raises rather than fall back to
-    the CPU; the other policy classes are RLlib's other algorithms."""
+    the CPU, for every policy class the port has; the recurrent and
+    distributional ones are the rest of RLlib."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        make_policy({}, *_spaces())
-    with pytest.raises(ModuleNotFoundError, match="q_policy"):
-        make_policy({"policy_class": "q"}, *_spaces(), device="cpu")
+    for name, discrete in (("actor_critic", True), ("q", True),
+                           ("sac", False), ("td3", False)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_policy({"policy_class": name}, *_spaces(discrete))
+    with pytest.raises(ModuleNotFoundError, match="r2d2_policy"):
+        make_policy({"policy_class": "r2d2"}, *_spaces(), device="cpu")
 
 
 def test_the_multi_agent_example(port_cluster):
