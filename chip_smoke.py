@@ -218,7 +218,7 @@ printed:
    gymnasium's CartPole-v1, or without gymnasium the same dynamics in
    numpy (``_CartPole``). With gymnasium, the ported multi-agent
    example's ``main()`` also learns its two opposing policies.
-   5p (last): RLlib's other learners on the card, at the tuned examples'
+   5p: RLlib's other learners on the card, at the tuned examples'
    widths and batches (``RLLIB_UPDATES``' note). (a) DQN (prioritized
    3-step rows), SAC, CQL (its penalty in the critic's loss), TD3, A2C,
    PG, IMPALA and APPO (V-trace), BC, MARWIL and ES's theta step, each
@@ -231,6 +231,18 @@ printed:
    finite losses, every action within +-2; cartpole-dqn trains 6
    iterations with epsilon annealing, then is saved and restored with the
    same weights and greedy actions; s per iteration of each.
+   5q (last): Rainbow, R2D2, QMIX, MADDPG and SlateQ on the card at their
+   tuned examples (``RLLIB_Q_ITERS``' note). (a) Rainbow (noisy heads off,
+   as tuned, and on), R2D2 (burn-in on stored states), QMIX, MADDPG and
+   SlateQ (two Adams as one multi_transform state), each built on the CPU
+   and on the card from one learner state, take the same updates on the
+   same batch and noise: every state and metric within 1e-4, the card
+   learner's parameters on the card, each update's ms on both. (b) the
+   five tuned examples train with their learners on the card (CartPole as
+   in 5o; the coordination, navigation and RecSim environments are the
+   port's copies, or without gymnasium their dynamics with attribute
+   spaces): finite losses, annealing exploration, then each is saved and
+   restored with the same weights and greedy answers; s per iteration.
 6. One JSON line of kernels (ms and library_ms per call, launch_ms and
    library_launch_ms per launch, at gpt-1.3b's shapes; the same at
    llama3-8b's under "llama3_8b", gpt-moe-8x410m's under
@@ -242,7 +254,7 @@ printed:
 ROOT/build/), so that two trees' kernels are timed by one method in one
 call; it prints no result line. ``python3 chip_smoke.py --phases
 zoo,air,rllib`` runs phases 1 and 2 and then the named groups of later
-phases alone ("zoo": 5h, 5i, 5k; "air": 5m; "rllib": 5o, 5p), with their
+phases alone ("zoo": 5h, 5i, 5k; "air": 5m; "rllib": 5o, 5p, 5q), with their
 checks; it prints no result line either.
 """
 
@@ -427,6 +439,23 @@ RLLIB_REMOTE_LEARNERS, RLLIB_LEARNER_SHARE = 2, 0.5
 RLLIB_UPDATES = 2
 RLLIB_HEAD_SCALE = 0.25
 RLLIB_SAC_ITERS, RLLIB_DQN_ITERS = 4, 6
+# Phase 5q: Rainbow, R2D2, QMIX, MADDPG and SlateQ at their tuned examples
+# (ray_tpu/rllib/tuned_examples/__init__.py), nothing cut: cartpole-rainbow
+# (:67-86: C51 over 51 atoms on [0, 120], dueling double Q, prioritized
+# 3-step rows, lr 8e-4, batch 64, 64x64, noisy heads off; 5q(a) also with
+# them on), cartpole-r2d2 (:89-103: LSTM of 64, windows of 10 with a
+# burn-in of 4, batch 32, lr 1e-3), coordination-qmix (:106-119: mixer of
+# 32, batch 32, 200 steps an iteration), spread-maddpg (:149-156) and
+# recsim-slateq (:137-146) at their configs' defaults (MADDPG batch 256 of
+# 2 agents, 50 updates an iteration after 1000 steps; SlateQ 10
+# candidates, slates of 3, batch 64). (a) RLLIB_UPDATES updates of each
+# on the card and on the CPU, held to RLLIB_SGD_TOL (relative where a
+# value exceeds 1: QMIX's tuned losses start near 700); (b) RLLIB_Q_ITERS
+# iterations of each tuned example with its learner on the card, enough
+# for two that learn, then a save and a restore.
+RLLIB_Q_ITERS = {"cartpole-rainbow": 3, "cartpole-r2d2": 3,
+                 "coordination-qmix": 2, "spread-maddpg": 3,
+                 "recsim-slateq": 2}
 # Phase 5m: the training side of AIR on the runtime at gpt-410m, with the
 # JAX package's example's preset and sizes (examples/gptj_finetune.py:
 # 103-110: batch 16 x 1024, flash attention, selective remat, loss_chunk
@@ -4766,19 +4795,24 @@ def _gymnasium():
     return gymnasium
 
 
-def _rllib_update_pair(torch, make, data, update):
-    """One learner of 5p(a) built on the CPU and on the card, the card's
-    state the CPU's (learner_state); RLLIB_UPDATES updates of each on the
-    same data (a replay learner's buffer filled with the same rows, a
-    3-step transform of them for DQN). Returns (the largest difference of
-    the states and of the metrics, each device's ms of its last update,
-    where the card learner's parameters are)."""
+def _rllib_update_pair(torch, make, data, update, fill=None,
+                       relative=False):
+    """One learner of 5p(a) or 5q(a) built on the CPU and on the card, the
+    card's state the CPU's (learner_state); RLLIB_UPDATES updates of each
+    on the same data (a replay learner's buffer filled with the same rows:
+    a 3-step transform of them for DQN, ``fill(algo)`` where given).
+    Returns (the largest difference of the states and of the metrics,
+    each device's ms of its last update, where the card learner's
+    parameters are). With ``relative``, a difference is divided by the
+    CPU's value where that exceeds 1 in magnitude: fp32's spacing there
+    is 1.2e-7 of the value, and QMIX's tuned mixer starts with losses of
+    ~700 and Adam moments to match."""
     from ray_tpu_torch.rllib.algorithms.learner_state import (
         learner_state, load_learner_state)
     from ray_tpu_torch.rllib.utils.replay_buffers import n_step_transform
     algos = [make().resources(device=d).build() for d in ("cpu", DEVICE)]
     try:
-        on = {t.device.type for t in _leaves(algos[1].local_policy.params)}
+        on = {t.device.type for t in _leaves(_learned(algos[1]))}
         name = type(algos[0]).__name__
         if name in ("SAC", "CQL"):
             with torch.no_grad():
@@ -4791,6 +4825,9 @@ def _rllib_update_pair(torch, make, data, update):
                 fill = n_step_transform(fill, 3, algos[0].config.gamma)
             for algo in algos:
                 algo._buffer.add(fill)
+        elif fill is not None:
+            for algo in algos:
+                fill(algo)
         load_learner_state(algos[1], learner_state(algos[0]))
         metrics, ms = [{}, {}], [0.0, 0.0]
         for i in range(RLLIB_UPDATES):
@@ -4805,14 +4842,17 @@ def _rllib_update_pair(torch, make, data, update):
     finally:
         for algo in algos:
             algo.stop()
-    diff = max(float(np.max(np.abs(np.asarray(a, np.float64)
-                                   - np.asarray(b, np.float64))))
-               for key in states[0]
+    def apart(got, want):
+        got, want = (np.asarray(x, np.float64) for x in (got, want))
+        scale = np.maximum(np.abs(want), 1.0) if relative else 1.0
+        return float(np.max(np.abs(got - want) / scale))
+
+    diff = max(apart(a, b) for key in states[0]
                for a, b in zip(_leaves(states[1][key]),
                                _leaves(states[0][key])))
-    check(set(metrics[0]) == set(metrics[1]), f"5p: the metrics {metrics}")
-    gap = max(abs(float(metrics[1][k]) - float(metrics[0][k]))
-              for k in metrics[0])
+    check(set(metrics[0]) == set(metrics[1]),
+          f"{name}: the metrics {metrics}")
+    gap = max(apart(metrics[1][k], metrics[0][k]) for k in metrics[0])
     return diff, gap, ms, on
 
 
@@ -4928,6 +4968,359 @@ def phase_rllib_learners(torch):
         ray_tpu_torch.shutdown()
 
 
+def _learned(algo):
+    """The parameters a learner steps: its policy's, or its own (QMix,
+    MADDPG, SlateQ)."""
+    return algo.params if algo._owns_params else algo.local_policy.params
+
+
+# -- 5q. Rainbow, R2D2, QMIX, MADDPG and SlateQ on the card -------------------
+
+def _rllib_envs():
+    """5q's multi-agent and slate environments: the port's copies
+    (env/examples.py, env/recsim.py) where gymnasium is installed; without
+    it, the copies' dynamics with their spaces read by their attributes
+    (the example environments declare no spaces then, and the RecSim copy
+    imports gymnasium): (coordination game, cooperative navigation,
+    RecSim)."""
+    from ray_tpu_torch.rllib.env.examples import (CooperativeNavEnv,
+                                                  CoordinationGameEnv)
+    if _gymnasium() is not None:
+        from ray_tpu_torch.rllib.env.recsim import RecSimEnv
+        return CoordinationGameEnv, CooperativeNavEnv, RecSimEnv
+
+    class _Coordination(CoordinationGameEnv):
+        def __init__(self, config=None):
+            super().__init__(config)
+            self.observation_space = types.SimpleNamespace(
+                shape=(self.n_contexts,), low=np.zeros(self.n_contexts),
+                high=np.ones(self.n_contexts), dtype=np.float32)
+            self.action_space = types.SimpleNamespace(n=self.n_actions,
+                                                      shape=())
+
+    class _CooperativeNav(CooperativeNavEnv):
+        def __init__(self, config=None):
+            super().__init__(config)
+            dim = 2 + 2 * self.n_agents + 2 * (self.n_agents - 1)
+            self.observation_space = types.SimpleNamespace(
+                shape=(dim,), low=np.full(dim, -3.0, np.float32),
+                high=np.full(dim, 3.0, np.float32), dtype=np.float32)
+            self.action_space = types.SimpleNamespace(
+                shape=(2,), low=np.full(2, -1.0, np.float32),
+                high=np.full(2, 1.0, np.float32), dtype=np.float32)
+
+    return _Coordination, _CooperativeNav, _RecSim
+
+
+class _RecSim:
+    """env/recsim.py's RecSimEnv (its interest-evolution dynamics, choice
+    model, rewards and horizon) in numpy, with the spaces read by their
+    attributes: 5q's SlateQ environment where gymnasium is not
+    installed."""
+
+    def __init__(self, config=None):
+        config = config or {}
+        self.num_candidates = int(config.get("num_candidates", 10))
+        self.slate_size = int(config.get("slate_size", 3))
+        self.num_topics = int(config.get("num_topics", 5))
+        self.horizon = int(config.get("horizon", 50))
+        self.choice_beta = float(config.get("choice_beta", 5.0))
+        self.no_click_score = float(config.get("no_click_score", 1.0))
+        self.interest_lr = float(config.get("interest_lr", 0.3))
+        self.clickbait = float(config.get("clickbait", 0.8))
+        t, c = self.num_topics, self.num_candidates
+        self.observation_space = types.SimpleNamespace(
+            shape=(t + c * (t + 1),), dtype=np.float32)
+        self.action_space = types.SimpleNamespace(
+            shape=(self.slate_size,), nvec=np.full(self.slate_size, c))
+        self._rng = np.random.default_rng(config.get("seed"))
+        self._user = self._docs = None
+        self._t = 0
+
+    def _sample_docs(self):
+        c, t = self.num_candidates, self.num_topics
+        topics = self._rng.dirichlet(np.full(t, 0.3), size=c)
+        appeal = topics.max(-1)
+        noise = self._rng.random(c)
+        quality = (1 - self.clickbait) * noise + \
+            self.clickbait * (1.0 - appeal)
+        return np.concatenate(
+            [topics, quality[:, None]], axis=-1).astype(np.float32)
+
+    def _obs(self):
+        return np.concatenate(
+            [self._user, self._docs.reshape(-1)]).astype(np.float32)
+
+    def choice_probs(self, slate):
+        scores = self.choice_beta * (self._docs[slate, :-1] @ self._user)
+        logits = np.concatenate([scores, [self.no_click_score]])
+        e = np.exp(logits - logits.max())
+        return e / e.sum()
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._user = self._rng.dirichlet(
+            np.full(self.num_topics, 0.5)).astype(np.float32)
+        self._docs = self._sample_docs()
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        slate = np.asarray(action, np.int64).reshape(-1)
+        pick = self._rng.choice(self.slate_size + 1,
+                                p=self.choice_probs(slate))
+        reward = 0.0
+        if pick < self.slate_size:
+            doc = self._docs[slate[pick]]
+            topic, quality = doc[:-1], float(doc[-1])
+            reward = quality
+            u = self._user + self.interest_lr * \
+                (topic - self._user) * quality
+            self._user = (u / max(u.sum(), 1e-6)).astype(np.float32)
+        self._docs = self._sample_docs()
+        self._t += 1
+        return self._obs(), float(reward), self._t >= self.horizon, False, \
+            {"clicked": int(pick) if pick < self.slate_size else -1}
+
+    def split_obs(self, obs):
+        t, c = self.num_topics, self.num_candidates
+        return obs[:t], obs[t:].reshape(c, t + 1)
+
+
+def _rllib_q_configs():
+    """5q's five tuned examples (ray_tpu/rllib/tuned_examples/
+    __init__.py), their environments 5q's: name -> a fresh config."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.tuned_examples import TUNED_EXAMPLES
+    coordination, nav, recsim = _rllib_envs()
+    cartpole = _CartPole if _gymnasium() is None else "CartPole-v1"
+
+    def tuned(name, env):
+        return lambda: TUNED_EXAMPLES[name].build_config().environment(env)
+
+    return {
+        "cartpole-rainbow": tuned("cartpole-rainbow", cartpole),
+        "cartpole-r2d2": tuned("cartpole-r2d2", cartpole),
+        "coordination-qmix": tuned("coordination-qmix", coordination),
+        "spread-maddpg": tuned("spread-maddpg", nav),
+        # The tuned example's config (its function imports env/recsim.py).
+        "recsim-slateq": lambda: rllib.SlateQConfig().environment(
+            recsim, env_config={"seed": 0}).debugging(seed=0),
+    }
+
+
+def _rllib_q_learners(configs):
+    """5q(a)'s learners: name -> (config, ``data(algo, i)``, ``update(algo,
+    data)``, ``fill(algo)``): the replay learners' buffers filled with the
+    same seeded rows, their minibatches (and Rainbow's noise) drawn on the
+    host from the CPU learner's buffer; the joint, navigation and slate
+    minibatches drawn from seeds."""
+    import torch
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to(v, device) for v in tree)
+        return tree.to(device)
+
+    def rainbow(noisy):
+        def make():
+            return configs["cartpole-rainbow"]().training(noisy=noisy)
+
+        def fill(algo):
+            from ray_tpu_torch.rllib.utils.replay_buffers import (
+                n_step_transform)
+            algo._buffer.add(n_step_transform(
+                _rllib_rows(4096, 11, "cartpole"), 3, algo.config.gamma))
+
+        def data(algo, i):
+            mb = algo._buffer.sample(64, beta=0.4)
+            gen = torch.Generator().manual_seed(30 + i)
+            pol = algo.local_policy
+            return mb, (pol.draw_noise(gen, 64) if noisy else None)
+
+        def update(algo, args):
+            mb, noise = args
+            if noise is not None:
+                noise = to(noise, algo.local_policy.device)
+            return {"loss": algo.learn_on_batch(mb, noise)[0]}
+
+        return make, data, update, fill
+
+    def r2d2_fill(algo):
+        rows = _rllib_rows(4096, 12, "cartpole")
+        rng = np.random.default_rng(13)
+        hidden = algo.config.lstm_cell_size
+        for k in ("lstm_h", "lstm_c"):
+            rows[k] = rng.normal(0, 0.3, (4096, hidden)).astype(np.float32)
+        algo._buffer.add(rows)
+
+    def joint(algo, i):
+        rng = np.random.default_rng(70 + i)
+        n, b = algo.n_agents, algo.config.train_batch_size
+        obs = rng.normal(size=(2, b, n, algo.obs_dim)).astype(np.float32)
+        return {"obs": obs[0], "new_obs": obs[1],
+                "actions": rng.integers(0, algo.n_actions, (b, n)),
+                "rewards": rng.normal(size=b).astype(np.float32),
+                "dones": (rng.random(b) < 0.1).astype(np.float32),
+                "state": obs[0].reshape(b, -1),
+                "new_state": obs[1].reshape(b, -1)}
+
+    def navigation(algo, i):
+        rng = np.random.default_rng(80 + i)
+        b = algo.config.train_batch_size
+        mb = {"rewards": rng.normal(size=(b, algo.n)).astype(np.float32),
+              "dones": (rng.random((b, 1)) < 0.05).astype(np.float32)}
+        for j in range(algo.n):
+            for k in ("obs", "new_obs"):
+                mb[f"{k}_{j}"] = rng.normal(
+                    size=(b, algo.obs_dims[j])).astype(np.float32)
+            mb[f"act_{j}"] = rng.uniform(
+                -1, 1, (b, algo.act_dims[j])).astype(np.float32)
+        return mb
+
+    def slates(algo, i):
+        rng = np.random.default_rng(90 + i)
+        b, c, k = algo.config.train_batch_size, algo.C, algo.k
+        user = rng.dirichlet(np.full(algo.T, 0.5), (2, b))
+        docs = rng.random((2, b, c, algo.doc_dim))
+        return {"user": user[0].astype(np.float32),
+                "docs": docs[0].astype(np.float32),
+                "slate": np.stack([rng.choice(c, k, replace=False)
+                                   for _ in range(b)]).astype(np.int32),
+                "pick": rng.integers(0, k + 1, (b, 1)).astype(np.int32),
+                "rewards": rng.random((b, 1)).astype(np.float32),
+                "dones": (rng.random((b, 1)) < 0.02).astype(np.float32),
+                "next_user": user[1].astype(np.float32),
+                "next_docs": docs[1].astype(np.float32)}
+
+    def metrics(*names):
+        def update(algo, mb):
+            out = algo.learn_on_batch(mb)
+            out = out if isinstance(out, tuple) else (out,)
+            return dict(zip(names, out))
+        return update
+
+    return {
+        "rainbow": rainbow(False),
+        "rainbow (noisy)": rainbow(True),
+        "r2d2": (configs["cartpole-r2d2"],
+                 lambda algo, i: algo._buffer.sample(
+                     algo.config.train_batch_size, algo.config.seq_len),
+                 metrics("loss"), r2d2_fill),
+        "qmix": (configs["coordination-qmix"], joint, metrics("loss"), None),
+        "maddpg": (configs["spread-maddpg"], navigation,
+                   metrics("critic_loss", "actor_loss"), None),
+        "slateq": (configs["recsim-slateq"], slates,
+                   metrics("q_loss", "choice_loss"), None),
+    }
+
+
+def _rllib_greedy(algo, name):
+    """A trained 5q learner's greedy answers to seeded inputs (a recurrent
+    one's from a fresh state)."""
+    rng = np.random.default_rng(3)
+    if name in ("cartpole-rainbow", "cartpole-r2d2"):
+        if name == "cartpole-r2d2":
+            algo.local_policy.reset_state()
+        return [algo.compute_single_action(o) for o in
+                rng.normal(size=(8, 4)).astype(np.float32)]
+    env = algo._env_creator(algo.config.env_config)
+    outs = []
+    for seed in range(4):
+        obs, _ = env.reset(seed=seed)
+        if name == "coordination-qmix":
+            outs.append(algo.compute_joint_action(obs))
+        elif name == "spread-maddpg":
+            outs.append({k: v.tolist() for k, v in
+                         algo.compute_actions(obs, noise=0.0).items()})
+        else:
+            outs.append(algo.compute_slate(obs, 0.0).tolist())
+    return outs
+
+
+def phase_rllib_more_learners(torch):
+    """5q: (a) Rainbow (noisy heads off, as tuned, and on), R2D2 (burn-in
+    on stored states), QMIX, MADDPG and SlateQ, each one update on the
+    card against the CPU from one learner state, batch and noise; (b) the
+    five tuned examples trained with their learners on the card, then
+    saved and restored; (c) each update's ms and each iteration's s."""
+    import ray_tpu_torch
+
+    gym = _gymnasium()
+    route = ("no gymnasium (_CartPole and the environments' dynamics with "
+             "attribute spaces)" if gym is None else
+             f"gymnasium {gym.__version__}")
+    print(f"rllib 5q: route: {route}")
+    configs = _rllib_q_configs()
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        rows = []
+        for name, (make, data, update, fill) in _rllib_q_learners(
+                configs).items():
+            diff, gap, ms, on = _rllib_update_pair(torch, make, data,
+                                                   update, fill, True)
+            check(on == {torch.device(DEVICE).type},
+                  f"5q: {name}'s learner parameters are on {on}")
+            check(diff <= RLLIB_SGD_TOL and gap <= RLLIB_SGD_TOL,
+                  f"5q: {name} on {DEVICE} against the CPU: state within "
+                  f"{diff:.3e}, metrics within {gap:.3e} (bound "
+                  f"{RLLIB_SGD_TOL})")
+            rows.append((name, ms, diff, gap))
+        print(f"rllib 5q: one update on {DEVICE} against the CPU from the "
+              f"same state, batch and noise ({RLLIB_UPDATES} each; ms of "
+              f"the last on the card, on the CPU; state and metrics within, "
+              f"relative above 1, bound {RLLIB_SGD_TOL}; {CARD}):")
+        for name, ms, diff, gap in rows:
+            print(f"  {name:16s} {ms[1]:9.3f} ms on {DEVICE} {ms[0]:9.3f} "
+                  f"ms on the CPU; state within {diff:.3e}, metrics within "
+                  f"{gap:.3e}")
+
+        for name, make in configs.items():
+            iters = RLLIB_Q_ITERS[name]
+            algo = make().resources(device=DEVICE).build()
+            check(all(t.device.type == torch.device(DEVICE).type
+                      for t in _leaves(_learned(algo))),
+                  f"5q: {name}'s learner is not on the card")
+            t0 = time.perf_counter()
+            results = [algo.train() for _ in range(iters)]
+            seconds = time.perf_counter() - t0
+            keys = [k for k in ("loss", "critic_loss", "actor_loss",
+                                "q_loss", "choice_loss") if k in results[0]]
+            learned = [r for r in results if np.isfinite(r[keys[0]])]
+            losses = [[r[k] for k in keys] for r in learned]
+            check(len(learned) >= 2 and np.isfinite(losses).all(),
+                  f"5q: {name}'s losses {losses}")
+            anneal = [r.get("epsilon", r.get("noise_sigma"))
+                      for r in results]
+            check(all(a > b for a, b in zip(anneal, anneal[1:])),
+                  f"5q: {name}'s exploration {anneal} does not anneal")
+            path = algo.save(tempfile.mkdtemp(prefix="chip_smoke_rllib_q_"))
+            greedy = _rllib_greedy(algo, name)
+            algo2 = make().resources(device=DEVICE).build()
+            algo2.restore(path)
+            shutil.rmtree(path, ignore_errors=True)
+            check(algo2.iteration == iters
+                  and _max_diff(algo2.get_weights(), algo.get_weights()) == 0
+                  and _rllib_greedy(algo2, name) == greedy,
+                  f"5q: the restored {name} differs from the saved one")
+            algo.stop()
+            algo2.stop()
+            print(f"rllib 5q: {name} ({route}), the learner on {DEVICE}: "
+                  f"{iters} iterations in {seconds:.1f} s "
+                  f"({[round(r['time_this_iter_s'], 2) for r in results]} s "
+                  f"each), {keys} {np.round(losses, 4).tolist()}, "
+                  f"exploration {[round(a, 3) for a in anneal]}, "
+                  f"episode_reward_mean "
+                  f"{[round(r['episode_reward_mean'], 2) for r in results]}; "
+                  f"saved and restored, the same weights and greedy "
+                  f"answers; {CARD}")
+    finally:
+        ray_tpu_torch.shutdown()
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -4951,7 +5344,7 @@ def kernel_times(root):
 def some_phases(groups):
     """Phases 1 and 2, then the groups of later phases named in
     ``groups``: "zoo" (5h, 5i on the 1-rank mesh, 5k), "air" (5m),
-    "rllib" (5o, 5p). Each phase's seconds and checks as in the whole
+    "rllib" (5o, 5p, 5q). Each phase's seconds and checks as in the whole
     run; prints no result line."""
     torch, _ = phase_environment()
     _timed("2", phase_build)
@@ -4971,6 +5364,7 @@ def some_phases(groups):
         if "rllib" in groups:
             _timed("5o", phase_rllib, torch)
             _timed("5p", phase_rllib_learners, torch)
+            _timed("5q", phase_rllib_more_learners, torch)
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -4998,7 +5392,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5p; returns the kernels line's rows."""
+    """Phases 2-5q; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -5048,6 +5442,7 @@ def _main_phases(torch):
     k1_tune, k2_tune, k3_tune = _timed("5n", phase_tune, torch, ref)
     _timed("5o", phase_rllib, torch)
     _timed("5p", phase_rllib_learners, torch)
+    _timed("5q", phase_rllib_more_learners, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [

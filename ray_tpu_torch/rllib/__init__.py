@@ -4,9 +4,13 @@ The port of ``ray_tpu/rllib``: the ``Algorithm``/``AlgorithmConfig``
 driver, ``WorkerSet`` rollout actors (CPU samplers), ``TorchPolicy`` (the
 port of ``JAXPolicy``), ``QPolicy`` and ``SACPolicy``; PPO with its
 per-minibatch and fused SGD schedules and its learner group, DQN (with
-SimpleQ and APEX-DQN as its configurations), SAC, CQL, TD3 (and DDPG),
-A2C, A3C, PG, IMPALA and APPO (V-trace), BC, MARWIL, ES and ARS;
-prioritized and n-step replay buffers; multi-agent training
+SimpleQ and APEX-DQN as its configurations), Rainbow (noisy nets and C51
+heads), R2D2 (recurrent sequence replay with burn-in), SAC, CQL, TD3
+(and DDPG and APEX-DDPG), A2C, A3C, PG, IMPALA and APPO (V-trace), BC,
+MARWIL, ES and ARS, QMIX (monotonic value factorization), MADDPG
+(centralized critics), SlateQ (slate recommendation), the LinUCB and
+LinTS contextual bandits and the random baseline; prioritized, n-step
+and sequence replay buffers; the tuned examples; multi-agent training
 (``MultiAgentEnv`` + policy maps), the new-stack ``core``
 (``RLModule``/``Learner``/``LearnerGroup``: a learner on a ``dp`` mesh or
 remote learner actors), connectors, offline JSON IO and the model
@@ -19,20 +23,32 @@ from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig
 from ray_tpu_torch.rllib.algorithms.a3c import A3C, A3CConfig
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.apex_ddpg import ApexDDPG, ApexDDPGConfig
 from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQN, ApexDQNConfig
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.algorithms.ars import ARS, ARSConfig
+from ray_tpu_torch.rllib.algorithms.bandit import (BanditConfig, BanditLinTS,
+                                                   BanditLinTSConfig,
+                                                   BanditLinUCB,
+                                                   BanditLinUCBConfig)
 from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.algorithms.ddpg import DDPG, DDPGConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
 from ray_tpu_torch.rllib.algorithms.es import ES, ESConfig
 from ray_tpu_torch.rllib.algorithms.impala import Impala, ImpalaConfig
+from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig
 from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.algorithms.pg import PG, PGConfig
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig
+from ray_tpu_torch.rllib.algorithms.qmix import QMix, QMixConfig
+from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config
+from ray_tpu_torch.rllib.algorithms.rainbow import Rainbow, RainbowConfig
+from ray_tpu_torch.rllib.algorithms.random_agent import (RandomAgent,
+                                                         RandomAgentConfig)
 from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig
 from ray_tpu_torch.rllib.algorithms.simple_q import SimpleQ, SimpleQConfig
+from ray_tpu_torch.rllib.algorithms.slateq import SlateQ, SlateQConfig
 from ray_tpu_torch.rllib.algorithms.td3 import TD3, TD3Config
 from ray_tpu_torch.rllib.core import (Learner, LearnerConfig, LearnerGroup,
                                       MLPActorCriticModule, PPOLearner,
@@ -53,15 +69,20 @@ from ray_tpu_torch.rllib.utils.replay_buffers import (PrioritizedReplayBuffer,
                                                       ReplayBuffer)
 
 __all__ = ["A2C", "A2CConfig", "A3C", "A3CConfig", "APPO", "APPOConfig",
-           "ARS", "ARSConfig", "Algorithm", "AlgorithmConfig", "ApexDQN",
-           "ApexDQNConfig", "BC", "BCConfig", "CQL", "CQLConfig", "DDPG",
+           "ARS", "ARSConfig", "Algorithm", "AlgorithmConfig", "ApexDDPG",
+           "ApexDDPGConfig", "ApexDQN", "ApexDQNConfig", "BC", "BCConfig",
+           "BanditConfig", "BanditLinTS", "BanditLinTSConfig",
+           "BanditLinUCB", "BanditLinUCBConfig", "CQL", "CQLConfig", "DDPG",
            "DDPGConfig", "DQN", "DQNConfig", "ES", "ESConfig", "Impala",
            "ImpalaConfig", "JsonReader", "JsonWriter", "Learner",
-           "LearnerConfig", "LearnerGroup", "MARWIL", "MARWILConfig",
-           "MLPActorCriticModule", "ModelCatalog", "MultiAgentBatch",
-           "MultiAgentEnv", "MultiAgentRolloutWorker", "PG", "PGConfig",
-           "PPO", "PPOConfig", "PPOLearner", "PrioritizedReplayBuffer",
-           "QPolicy", "RLModule", "RLModuleSpec", "ReplayBuffer",
-           "RolloutWorker", "SAC", "SACConfig", "SACPolicy", "SampleBatch",
-           "SimpleQ", "SimpleQConfig", "TD3", "TD3Config", "TorchPolicy",
-           "WorkerSet", "compute_gae"]
+           "LearnerConfig", "LearnerGroup", "MADDPG", "MADDPGConfig",
+           "MARWIL", "MARWILConfig", "MLPActorCriticModule", "ModelCatalog",
+           "MultiAgentBatch", "MultiAgentEnv", "MultiAgentRolloutWorker",
+           "PG", "PGConfig", "PPO", "PPOConfig", "PPOLearner",
+           "PrioritizedReplayBuffer", "QMix", "QMixConfig", "QPolicy",
+           "R2D2", "R2D2Config", "RLModule", "RLModuleSpec", "Rainbow",
+           "RainbowConfig", "RandomAgent", "RandomAgentConfig",
+           "ReplayBuffer", "RolloutWorker", "SAC", "SACConfig", "SACPolicy",
+           "SampleBatch", "SimpleQ", "SimpleQConfig", "SlateQ",
+           "SlateQConfig", "TD3", "TD3Config", "TorchPolicy", "WorkerSet",
+           "compute_gae"]

@@ -5,9 +5,10 @@ learner's copies) live on ``config.device``, the CUDA card unless the
 config asks for the CPU (``.resources(device="cpu")``); its rollout
 workers sample on the CPU. ``get_weights`` and ``save`` write the JAX
 package's numpy tree, so an ``algorithm_state.pkl`` of either package
-restores in the other. The greedy action is the argmax of a value-based
-policy's Q values, a SAC or TD3 actor's mean, and otherwise the
-actor-critic's logits' argmax or mean.
+restores in the other. The greedy action is a recurrent policy's own
+(``compute_greedy``, which advances its state), the argmax of a
+value-based policy's Q values, a SAC or TD3 actor's mean, and otherwise
+the actor-critic's logits' argmax or mean.
 
 Analog of the reference's rllib/algorithms/algorithm.py:150 (step :744,
 training_step :1322): owns a WorkerSet and a learner policy; each train()
@@ -39,6 +40,9 @@ class Algorithm:
     # Algorithms whose learner handles a policy map (PPO today); others
     # reject config.multi_agent() up front instead of crashing in setup.
     _supports_multi_agent = False
+    # Algorithms that learn parameters of their own (``self.params``: QMix,
+    # MADDPG, SlateQ) rather than the policy's; learner_state reads them.
+    _owns_params = False
 
     def __init__(self, config: Optional[AlgorithmConfig] = None, env=None,
                  **kwargs):
@@ -217,6 +221,8 @@ class Algorithm:
             gen = policy.make_generator(int(time.monotonic_ns()) % (2**31))
             a, _, _ = policy.compute_actions(obs, gen)
             return a[0] if policy.discrete is False else int(a[0])
+        if hasattr(policy, "compute_greedy"):
+            return policy.compute_greedy(obs)
         x = as_tensor(obs, policy.device)
         if hasattr(policy, "q_values"):  # value-based: greedy = argmax Q
             with torch.no_grad():

@@ -12,12 +12,14 @@ the buffer is filled from JSON files instead of rollouts.
 
 :meth:`DQN.learn_on_batch` is one gradient step on a replay minibatch,
 with its priority update and target sync: the body of the JAX package's
-update loop.
+update loop. The JAX update hands its loss a PRNG key for noisy-net
+sampling (Rainbow's); here the loss takes that noise as tensors
+(:meth:`DQN.draw_noise`, None for DQN's own loss).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,10 +98,11 @@ class DQNConfig(AlgorithmConfig):
 
 def make_dqn_loss(policy, gamma: float, double_q: bool):
     """The double-DQN Huber loss bound to ``policy``: ``loss_fn(params,
-    target_params, mb) -> (loss, td)``. The target is computed without
+    target_params, mb, noise=None) -> (loss, td)``; the noise feeds
+    noisy-net sampling and is unused here. The target is computed without
     gradients (JAX's ``stop_gradient``)."""
 
-    def loss_fn(params, target_params, mb):
+    def loss_fn(params, target_params, mb, noise=None):
         q_all = policy.q_values(params, mb["obs"])
         q_taken = torch.gather(q_all, -1,
                                mb["actions"][..., None].long())[..., 0]
@@ -151,8 +154,14 @@ class DQN(Algorithm):
         self._loss_fn = self._build_loss_fn(policy, config)
 
     def _build_loss_fn(self, policy, config):
-        """Returns loss_fn(params, target_params, mb) -> (loss, td)."""
+        """Returns loss_fn(params, target_params, mb, noise) -> (loss, td).
+        Rainbow overrides this with the C51 distributional loss."""
         return make_dqn_loss(policy, config.gamma, config.double_q)
+
+    def draw_noise(self, batch: int) -> Optional[Any]:
+        """The loss's noise for a minibatch of ``batch`` rows: none for
+        DQN (Rainbow's noisy heads draw theirs)."""
+        return None
 
     def _epsilon(self) -> float:
         config: DQNConfig = self.config
@@ -166,18 +175,23 @@ class DQN(Algorithm):
         weights["epsilon"] = self._epsilon()
         return weights
 
-    def learn_on_batch(self, mb: Dict[str, Any]) -> Tuple[float, np.ndarray]:
+    def learn_on_batch(self, mb: Dict[str, Any], noise: Optional[Any] = None
+                       ) -> Tuple[float, np.ndarray]:
         """One Adam step on a replay minibatch (numpy columns, as the
-        buffer samples them) on the learner's device; then its priorities
-        from |td| and, every ``target_network_update_freq`` steps, the
-        target sync. Returns the loss and the TD errors."""
+        buffer samples them) on the learner's device, with ``noise``
+        (:meth:`draw_noise`'s, drawn when None); then its priorities from
+        |td| and, every ``target_network_update_freq`` steps, the target
+        sync. Returns the loss and the TD errors."""
         config: DQNConfig = self.config
         policy = self.local_policy
         device_mb = {k: as_tensor(v, policy.device) for k, v in mb.items()
                      if k in _COLUMNS}
+        if noise is None:
+            noise = self.draw_noise(len(mb["obs"]))
 
         def loss(params, batch):
-            value, td = self._loss_fn(params, self._target_params, batch)
+            value, td = self._loss_fn(params, self._target_params, batch,
+                                      noise)
             return value, {"td": td}
 
         grads, metrics = loss_grads(loss, policy.params, device_mb)

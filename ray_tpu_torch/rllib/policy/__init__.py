@@ -3,10 +3,9 @@ an implementation (the port of ``ray_tpu/rllib/policy/__init__.py``).
 
 Every policy lives on ``device`` (None is the CUDA card): "actor_critic"
 is :class:`TorchPolicy`, "q" :class:`QPolicy`, "sac" and "td3"
-:class:`SACPolicy` and :class:`TD3Policy`. The recurrent and
-distributional policies ("r2d2", "rainbow") come with the rest of RLlib
-(ROADMAP item 10b): their modules are not in the port yet, and asking for
-one raises ``ModuleNotFoundError``.
+:class:`SACPolicy` and :class:`TD3Policy`, "r2d2" the recurrent
+:class:`R2D2Policy` and "rainbow" the distributional
+:class:`RainbowPolicy`.
 """
 
 from __future__ import annotations
@@ -63,11 +62,11 @@ def make_policy(policy_config: Dict[str, Any], obs_space, action_space,
     if name == "r2d2":
         from ray_tpu_torch.rllib.policy.r2d2_policy import R2D2Policy
         return R2D2Policy(obs_space, action_space, model_config,
-                          seed=seed)
+                          seed=seed, device=device)
     if name == "rainbow":
         from ray_tpu_torch.rllib.policy.rainbow_policy import RainbowPolicy
         return RainbowPolicy(obs_space, action_space, model_config,
-                             seed=seed)
+                             seed=seed, device=device)
     if name == "td3":
         from ray_tpu_torch.rllib.policy.sac_policy import TD3Policy
         return TD3Policy(obs_space, action_space, model_config, seed=seed,

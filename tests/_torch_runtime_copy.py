@@ -107,6 +107,13 @@ MANIFEST = [
     "rllib/utils/__init__.py", "rllib/utils/replay_buffers.py",
     "rllib/algorithms/simple_q.py", "rllib/algorithms/apex_dqn.py",
     "rllib/algorithms/ddpg.py",
+    # APEX-DDPG (DDPG's configuration), the random baseline and the
+    # contextual bandits (numpy posteriors on the host), the example and
+    # RecSim environments QMix, MADDPG and SlateQ train on, and the tuned
+    # examples: JAX-free.
+    "rllib/algorithms/apex_ddpg.py", "rllib/algorithms/random_agent.py",
+    "rllib/algorithms/bandit.py", "rllib/env/examples.py",
+    "rllib/env/recsim.py", "rllib/tuned_examples/__init__.py",
 ]
 
 # Modules (or ``module:name`` for one name) that a port file imports
@@ -126,11 +133,18 @@ NOT_YET_COPIED: Dict[str, str] = {
         "item 18: the cluster tools (the CLI's up and down commands)",
     "ray_tpu_torch._private.ray_perf":
         "item 18: the cluster tools (the CLI's perf command)",
-    "ray_tpu_torch.rllib.policy.r2d2_policy":
-        "item 10b: RLlib's other algorithms (make_policy's \"r2d2\" branch)",
-    "ray_tpu_torch.rllib.policy.rainbow_policy":
-        "item 10b: RLlib's other algorithms (make_policy's \"rainbow\" "
-        "branch)",
+    "ray_tpu_torch.rllib:AlphaZeroConfig":
+        "item 10b: RLlib's other algorithms (the cartpole-alphazero tuned "
+        "example)",
+    "ray_tpu_torch.rllib:DDPPOConfig":
+        "item 10b: RLlib's other algorithms (the cartpole-ddppo tuned "
+        "example)",
+    "ray_tpu_torch.rllib:DreamerConfig":
+        "item 10b: RLlib's other algorithms (the pointgoal-dreamer tuned "
+        "example)",
+    "ray_tpu_torch.rllib.env.atari":
+        "item 10b: RLlib's other algorithms (the atari-ppo tuned example's "
+        "synthetic Atari environment)",
 }
 
 
@@ -219,6 +233,11 @@ _GYM_LAZY = ("the learner's route must run where gymnasium is not installed: "
              "clips as a Box, and a space read by its attributes builds its "
              "connectors without gymnasium")
 
+_TUNED_DEVICE = ("the port's learner runs on the CUDA card unless asked for "
+                 "the CPU: a tuned example is built on the device it is "
+                 "given (None: the card), where the JAX package's learner "
+                 "takes no device")
+
 _ITEM_10B = ("the policy client and server (client-server RL) come with "
              "RLlib's other algorithms, ROADMAP item 10b")
 
@@ -286,6 +305,17 @@ __all__ = ["ExternalEnv", "MultiAgentEnv", "PolicyClient",
            "PolicyServerInput"]''',
              '''
 __all__ = ["ExternalEnv", "MultiAgentEnv"]''', _ITEM_10B),
+    ],
+    "rllib/tuned_examples/__init__.py": [
+        Edit('''def run_tuned_example(name: str, *, max_iters: Optional[int] = None,
+                      tier: str = "ci") -> Dict[str, Any]:''',
+             '''def run_tuned_example(name: str, *, max_iters: Optional[int] = None,
+                      tier: str = "ci", device: Any = None
+                      ) -> Dict[str, Any]:''',
+             _TUNED_DEVICE),
+        Edit('''    algo = ex.build_config().build()''',
+             '''    algo = ex.build_config().resources(device=device).build()''',
+             _TUNED_DEVICE),
     ],
     "_private/task_spec.py": [
         Edit('TPU_RESOURCE = "TPU"', 'TPU_RESOURCE = "GPU"', _GPU),

@@ -14,7 +14,10 @@ the same on the CPU from the same parameters, in fp32 with TF32 off. Then
 update of each other learner (DQN with prioritized 3-step rows, SAC, CQL,
 TD3, A2C, PG, IMPALA, APPO, BC, MARWIL, ES's theta step) on the card
 against the CPU from the same learner state (``learner_state``), batch
-and noise; each learner built without a device is on the card.
+and noise; each learner built without a device is on the card. Then
+``RainbowPolicy``'s (noisy and not) and ``R2D2Policy``'s forwards, and one
+update of Rainbow (noisy heads on and off), R2D2, QMIX, MADDPG and SlateQ,
+the same way.
 """
 
 import types
@@ -24,14 +27,19 @@ import pytest
 import torch
 
 from ray_tpu_torch.rllib.algorithms import (a2c, appo, bc, cql, dqn, es,
-                                            impala, marwil, pg, ppo, sac,
+                                            impala, maddpg, marwil, pg, ppo,
+                                            qmix, r2d2, rainbow, sac, slateq,
                                             td3)
-from ray_tpu_torch.rllib.algorithms.learner_state import (learner_state,
+from ray_tpu_torch.rllib.algorithms.learner_state import (flat_leaves,
+                                                          learner_state,
                                                           load_learner_state)
 from ray_tpu_torch.rllib.offline import JsonWriter
 from ray_tpu_torch.rllib.policy import make_policy
 from ray_tpu_torch.rllib.policy.sac_policy import SACPolicy, TD3Policy
 from ray_tpu_torch.rllib.policy.q_policy import QPolicy
+from ray_tpu_torch.rllib.policy.r2d2_policy import R2D2Policy
+from ray_tpu_torch.rllib.policy.rainbow_policy import (RainbowPolicy,
+                                                       factorized)
 from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
 from ray_tpu_torch.rllib.core import (LearnerConfig, MLPActorCriticModule,
                                       PPOLearner, RLModuleSpec)
@@ -324,3 +332,193 @@ def test_one_update_on_the_card_matches_the_cpu(cuda, tmp_path, name,
                                        rtol=UPDATE_TOL, atol=UPDATE_TOL,
                                        err_msg=key)
 
+
+
+# -- Rainbow, R2D2, QMIX, MADDPG and SlateQ --------------------------------
+
+def test_rainbow_and_r2d2_forwards_on_the_card_match_the_cpu(cuda):
+    """Rainbow's atom log-probabilities and Q values with noisy heads (the
+    same host-drawn noise) and without; R2D2's Q values and final state
+    over a window from a stored state."""
+    obs = _batch(16, True, seed=6)["obs"]
+    gen = torch.Generator().manual_seed(1)
+    for noisy in (True, False):
+        outs, noise = [], None
+        for device in ("cpu", cuda):
+            pol = RainbowPolicy(OBS, DISCRETE, {
+                "fcnet_hiddens": (32,), "noisy": noisy, "num_atoms": 21,
+                "v_min": 0.0, "v_max": 50.0}, 1, device)
+            if noisy and noise is None:
+                noise = pol.draw_noise(gen, 16)
+            moved = None if not noisy else {
+                k: tuple(t.to(device) for t in v) for k, v in noise.items()}
+            x = as_tensor(obs, device)
+            outs.append([pol.logits_dist(pol.params, x, moved),
+                         pol.q_values(pol.params, x, moved)])
+        assert outs[1][0].device.type == "cuda"
+        for a, b in zip(*outs):
+            _close(a, b, FWD_TOL)
+    rng = np.random.default_rng(7)
+    seq = rng.normal(size=(8, 6, 4)).astype(np.float32)
+    h0, c0 = (rng.normal(size=(8, 16)).astype(np.float32) for _ in range(2))
+    outs = []
+    for device in ("cpu", cuda):
+        pol = R2D2Policy(OBS, DISCRETE, {"fcnet_hiddens": (32,),
+                                         "lstm_cell_size": 16}, 1, device)
+        q, (h, c) = pol.q_seq(pol.params, as_tensor(seq, device),
+                              as_tensor(h0, device), as_tensor(c0, device))
+        outs.append([q, h, c])
+    for a, b in zip(*outs):
+        _close(a, b, FWD_TOL)
+
+
+class _Agents:
+    """Two agents as QMix and MADDPG read their environment at setup."""
+
+    def __init__(self, obs_dim, action_space):
+        self._obs = {a: np.zeros(obs_dim, np.float32) for a in ("a0", "a1")}
+        self._obs_space = types.SimpleNamespace(shape=(obs_dim,))
+        self._act_space = action_space
+
+    def reset(self, seed=None):
+        return dict(self._obs), {}
+
+    def observation_space_for(self, agent_id):
+        return self._obs_space
+
+    def action_space_for(self, agent_id):
+        return self._act_space
+
+
+SLATES = types.SimpleNamespace(num_candidates=10, slate_size=3, num_topics=5,
+                               no_click_score=1.0,
+                               reset=lambda seed=None: (np.zeros(60), {}))
+
+
+def _own(cls, config, env, device):
+    """A learner with parameters of its own (QMix, MADDPG, SlateQ)
+    without its runtime, on ``device``."""
+    algo = object.__new__(cls)
+    algo.config = config.resources(device=device)
+    algo.local_policy = None
+    algo.iteration = 1
+    algo._timesteps_total = 0
+    algo.is_multi_agent = False
+    algo._env_creator = lambda _c: env
+    algo.setup(algo.config)
+    return algo
+
+
+def _more_case(name):
+    """(build(device) -> algo, learn(algo) -> metrics) of each learner,
+    the batches and noise drawn on the host from seeds."""
+    rng = np.random.default_rng(11)
+    small = {"fcnet_hiddens": [32, 32]}
+    if name in ("rainbow", "rainbow-noisy", "r2d2"):
+        rows = _rows(512, 3, "cartpole")
+        if name == "r2d2":
+            cls, cfg = r2d2.R2D2, r2d2.R2D2Config().training(
+                model=small, lstm_cell_size=16, burn_in=3, seq_len=8,
+                target_network_update_freq=1, tau=0.5)
+            for k in ("lstm_h", "lstm_c"):
+                rows[k] = rng.normal(0, 0.3, (512, 16)).astype(np.float32)
+        else:
+            cls, cfg = rainbow.Rainbow, rainbow.RainbowConfig().training(
+                model=small, noisy=name == "rainbow-noisy", num_atoms=21,
+                v_min=-5.0, v_max=5.0, target_network_update_freq=1,
+                tau=0.5)
+        cfg = cfg.debugging(seed=3)
+        # The online pass's factorized noise (adv, val heads), on the host.
+        gen = torch.Generator().manual_seed(5)
+        noise = {head: tuple(factorized(torch.randn((64, n), generator=gen))
+                             for n in (32, out))
+                 for head, out in (("adv", 2 * 21), ("val", 21))}
+
+        def build(device):
+            algo = _bare(cls, cfg, OBS, DISCRETE, device)
+            algo._buffer.add(SampleBatch(dict(rows)))
+            return algo
+
+        def learn(algo):
+            if name == "r2d2":
+                return {"loss": algo.learn_on_batch(
+                    algo._buffer.sample(16, 8))[0]}
+            device = algo.local_policy.device
+            return {"loss": algo.learn_on_batch(
+                algo._buffer.sample(64, beta=0.4),
+                {k: tuple(t.to(device) for t in v)
+                 for k, v in noise.items()} if cfg.noisy else None)[0]}
+
+        return build, learn
+    if name == "qmix":
+        cfg = qmix.QMixConfig().training(
+            model={"fcnet_hiddens": [32]}, mixing_embed_dim=16,
+            target_network_update_freq=1).debugging(seed=3)
+        obs = rng.normal(size=(2, 32, 2, 3)).astype(np.float32)
+        mb = {"obs": obs[0], "new_obs": obs[1],
+              "actions": rng.integers(0, 3, (32, 2)),
+              "rewards": rng.normal(size=32).astype(np.float32),
+              "dones": (rng.random(32) < 0.2).astype(np.float32),
+              "state": obs[0].reshape(32, -1),
+              "new_state": obs[1].reshape(32, -1)}
+        env = _Agents(3, types.SimpleNamespace(n=3, shape=()))
+        return (lambda d: _own(qmix.QMix, cfg, env, d),
+                lambda algo: {"loss": algo.learn_on_batch(mb)})
+    if name == "maddpg":
+        cfg = maddpg.MADDPGConfig().training(
+            model={"fcnet_hiddens": [32]}, tau=0.1).debugging(seed=3)
+        mb = {"rewards": rng.normal(size=(64, 2)).astype(np.float32),
+              "dones": (rng.random((64, 1)) < 0.1).astype(np.float32)}
+        for j in range(2):
+            for k in ("obs", "new_obs"):
+                mb[f"{k}_{j}"] = rng.normal(size=(64, 6)).astype(np.float32)
+            mb[f"act_{j}"] = rng.uniform(-1, 1, (64, 2)).astype(np.float32)
+        env = _Agents(6, types.SimpleNamespace(
+            shape=(2,), low=np.full(2, -1.0, np.float32),
+            high=np.full(2, 1.0, np.float32)))
+        return (lambda d: _own(maddpg.MADDPG, cfg, env, d),
+                lambda algo: dict(zip(("critic_loss", "actor_loss"),
+                                      algo.learn_on_batch(mb))))
+    cfg = slateq.SlateQConfig().training(
+        lr_choice_model=3e-3, target_network_update_freq=1).debugging(seed=3)
+    user = rng.dirichlet(np.full(5, 0.5), (2, 32)).astype(np.float32)
+    docs = rng.random((2, 32, 10, 6)).astype(np.float32)
+    mb = {"user": user[0], "docs": docs[0], "next_user": user[1],
+          "next_docs": docs[1],
+          "slate": np.stack([rng.choice(10, 3, replace=False)
+                             for _ in range(32)]).astype(np.int32),
+          "pick": rng.integers(0, 4, (32, 1)).astype(np.int32),
+          "rewards": rng.random((32, 1)).astype(np.float32),
+          "dones": (rng.random((32, 1)) < 0.2).astype(np.float32)}
+    return (lambda d: _own(slateq.SlateQ, cfg, SLATES, d),
+            lambda algo: dict(zip(("q_loss", "choice_loss"),
+                                  algo.learn_on_batch(mb))))
+
+
+def _learned(algo):
+    return algo.params if algo._owns_params else algo.local_policy.params
+
+
+@pytest.mark.parametrize("name", ["rainbow", "rainbow-noisy", "r2d2", "qmix",
+                                  "maddpg", "slateq"])
+def test_one_more_update_on_the_card_matches_the_cpu(cuda, name):
+    """One update of each on the card against the CPU from the same
+    learner state (``learner_state``: SlateQ's two Adams as optax's
+    multi_transform state, MADDPG's per-agent lists), batch and noise;
+    built without a device, each learner is on the card."""
+    build, learn = _more_case(name)
+    algos = [build("cpu"), build(None)]
+    assert all(t.device.type == "cuda"
+               for t in named_leaves(_learned(algos[1])).values())
+    load_learner_state(algos[1], learner_state(algos[0]))
+    got = [learn(a) for a in algos]
+    for k in got[0]:
+        np.testing.assert_allclose(got[1][k], got[0][k], rtol=UPDATE_TOL,
+                                   atol=UPDATE_TOL, err_msg=k)
+    card, cpu = learner_state(algos[1]), learner_state(algos[0])
+    for key in cpu:
+        for a, b in zip(flat_leaves(card[key]), flat_leaves(cpu[key])):
+            np.testing.assert_allclose(np.asarray(a, np.float64),
+                                       np.asarray(b, np.float64),
+                                       rtol=UPDATE_TOL, atol=UPDATE_TOL,
+                                       err_msg=key)

@@ -489,15 +489,17 @@ def test_multi_agent_config_validation():
 
 def test_the_learner_defaults_to_the_card(monkeypatch):
     """Without a card, the default device raises rather than fall back to
-    the CPU, for every policy class the port has; the recurrent and
-    distributional ones are the rest of RLlib."""
+    the CPU, for every policy class; asked for the CPU, each builds
+    there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, discrete in (("actor_critic", True), ("q", True),
-                           ("sac", False), ("td3", False)):
+                           ("sac", False), ("td3", False), ("r2d2", True),
+                           ("rainbow", True)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_policy({"policy_class": name}, *_spaces(discrete))
-    with pytest.raises(ModuleNotFoundError, match="r2d2_policy"):
-        make_policy({"policy_class": "r2d2"}, *_spaces(), device="cpu")
+        pol = make_policy({"policy_class": name}, *_spaces(discrete),
+                          device="cpu")
+        assert pol.device == torch.device("cpu")
 
 
 def test_the_multi_agent_example(port_cluster):

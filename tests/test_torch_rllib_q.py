@@ -30,6 +30,7 @@ import ray_tpu_torch
 from _torch_rllib_pair import (GRAD_ATOL, GRAD_RTOL, LOSS_TOL, assert_state,
                                bare, carry, closure, grads_close,
                                one_torch_thread, port_cluster)
+from _torch_rllib_pair import transitions as _transitions
 from ray_tpu.rllib import DQNConfig as JDQNConfig
 from ray_tpu.rllib import JsonWriter as JJsonWriter
 from ray_tpu.rllib import SACConfig as JSACConfig
@@ -78,34 +79,6 @@ def _spaces(kind):
                 gym.spaces.Discrete(2))
     return (gym.spaces.Box(-np.inf, np.inf, (3,), np.float32),
             gym.spaces.Box(-2.0, 2.0, (1,), np.float32))
-
-
-def _transitions(n, kind, seed):
-    """A replay batch of ``n`` seeded rows shaped as CartPole's or
-    Pendulum's: episodes of 5-40 steps, each ended by a termination or a
-    truncation."""
-    rng = np.random.default_rng(seed)
-    obs_dim = 4 if kind == "cartpole" else 3
-    ends = np.zeros(n, bool)
-    t = 0
-    while t < n:
-        t += int(rng.integers(5, 40))
-        if t <= n:
-            ends[t - 1] = True
-    term = ends & (rng.random(n) < 0.6)
-    trunc = ends & ~term
-    return SampleBatch({
-        SampleBatch.OBS: rng.normal(size=(n, obs_dim)).astype(np.float32),
-        SampleBatch.NEXT_OBS: rng.normal(size=(n, obs_dim)).astype(
-            np.float32),
-        SampleBatch.ACTIONS: (rng.integers(0, 2, n) if kind == "cartpole"
-                              else rng.uniform(-2, 2, (n, 1)).astype(
-                                  np.float32)),
-        SampleBatch.REWARDS: rng.normal(size=n).astype(np.float32),
-        SampleBatch.TERMINATEDS: term.astype(np.float32),
-        SampleBatch.TRUNCATEDS: trunc.astype(np.float32),
-        SampleBatch.EPS_ID: np.concatenate([[0], np.cumsum(ends)[:-1]]),
-    })
 
 
 def _write_offline(path, kind, seed, fragments=4, rows=96):
@@ -837,16 +810,31 @@ def test_checkpoints_restore_across_the_packages(ray_start_regular,
 
 @pytest.mark.parametrize("name", [
     "DQN", "SimpleQ", "ApexDQN", "SAC", "CQL", "TD3", "DDPG", "A2C", "A3C",
-    "PG", "Impala", "APPO", "BC", "MARWIL", "ES", "ARS"])
+    "PG", "Impala", "APPO", "BC", "MARWIL", "ES", "ARS", "Rainbow", "R2D2",
+    "QMix", "MADDPG", "SlateQ"])
 def test_the_learners_default_to_the_card(port_cluster, monkeypatch,
                                           tmp_path, name):
     """Built without a device, every learner asks for the CUDA card and,
-    without one, raises rather than fall back to the CPU."""
+    without one, raises rather than fall back to the CPU; so does the
+    setup of a learner with parameters of its own (QMix, MADDPG,
+    SlateQ), which it builds on ``config.device``."""
     import ray_tpu_torch.rllib as rllib
-    config = getattr(rllib, f"{name}Config")().environment(
-        "Pendulum-v1" if name in ("SAC", "CQL", "TD3", "DDPG")
-        else "CartPole-v1").offline_data(input_=str(tmp_path))
+    from ray_tpu_torch.rllib.env.examples import (CoordinationGameEnv,
+                                                  CooperativeNavEnv)
+    from ray_tpu_torch.rllib.env.recsim import RecSimEnv
+    env = {"SAC": "Pendulum-v1", "CQL": "Pendulum-v1", "TD3": "Pendulum-v1",
+           "DDPG": "Pendulum-v1", "QMix": CoordinationGameEnv,
+           "MADDPG": CooperativeNavEnv, "SlateQ": RecSimEnv}.get(
+               name, "CartPole-v1")
+    config = getattr(rllib, f"{name}Config")().environment(env)
     assert config.device is None
+    algo_class = config.algo_class
+    if not algo_class._owns_params:
+        config.offline_data(input_=str(tmp_path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         config.build()
+    if algo_class._owns_params:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bare(algo_class, config, None,
+                 _env_creator=config.env_creator())
