@@ -456,6 +456,23 @@ RLLIB_SAC_ITERS, RLLIB_DQN_ITERS = 4, 6
 RLLIB_Q_ITERS = {"cartpole-rainbow": 3, "cartpole-r2d2": 3,
                  "coordination-qmix": 2, "spread-maddpg": 3,
                  "recsim-slateq": 2}
+# Phase 5r: AlphaStar, AlphaZero, CRR, DDPPO, Dreamer, DT, MAML and MBMPO,
+# nothing cut: cartpole-alphazero (ray_tpu/rllib/tuned_examples/
+# __init__.py:159-167: 30 simulations, 64x64, batch 128), cartpole-ddppo
+# (:170-178: 2 workers, lr 5e-4, 4 SGD iterations, minibatches of 128, 256
+# steps per worker), pointgoal-dreamer (:181-193: deter 128, stoch 16,
+# hidden 128, 32 sequences of 10, horizon 8, 20 updates an iteration after
+# 300 steps), the others at their configs' defaults (AlphaStar 3 learners
+# of 64x64 over 16 matches of 8 rounds; CRR batch 256, 64 updates an
+# iteration; DT context 20, embed 64, 2 layers, 4 heads, batch 64; MAML 5
+# hidden-goal tasks of 8 episodes; MBMPO 3 models of 64x64, 400 real steps).
+# (a) RLLIB_UPDATES updates of each on the card and on the CPU from one
+# learner state, batch and host-drawn noise, held to RLLIB_SGD_TOL
+# (relative above 1); DDPPO's two workers bit-equal; one AlphaZero search
+# timed on each device. (b) RLLIB_MORE_ITERS iterations of each, the
+# learner on the card, then a save and a restore.
+RLLIB_MORE_ITERS = {"alphastar": 2, "alphazero": 4, "crr": 2, "ddppo": 3,
+                    "dreamer": 4, "dt": 2, "maml": 2, "mbmpo": 2}
 # Phase 5m: the training side of AIR on the runtime at gpt-410m, with the
 # JAX package's example's preset and sizes (examples/gptj_finetune.py:
 # 103-110: batch 16 x 1024, flash attention, selective remat, loss_chunk
@@ -4796,11 +4813,12 @@ def _gymnasium():
 
 
 def _rllib_update_pair(torch, make, data, update, fill=None,
-                       relative=False):
-    """One learner of 5p(a) or 5q(a) built on the CPU and on the card, the
-    card's state the CPU's (learner_state); RLLIB_UPDATES updates of each
-    on the same data (a replay learner's buffer filled with the same rows:
-    a 3-step transform of them for DQN, ``fill(algo)`` where given).
+                       relative=False, after=None):
+    """One learner of 5p(a), 5q(a) or 5r(a) built on the CPU and on the
+    card, the card's state the CPU's (learner_state); RLLIB_UPDATES updates
+    of each on the same data (a replay learner's buffer filled with the
+    same rows: a 3-step transform of them for DQN, ``fill(algo)`` where
+    given), then ``after(card_algo)`` where given, before both stop.
     Returns (the largest difference of the states and of the metrics,
     each device's ms of its last update, where the card learner's
     parameters are). With ``relative``, a difference is divided by the
@@ -4839,6 +4857,8 @@ def _rllib_update_pair(torch, make, data, update, fill=None,
                 torch.cuda.synchronize()
                 ms[k] = (time.perf_counter() - t0) * 1e3
         states = [learner_state(a) for a in algos]
+        if after is not None:
+            after(algos[1])
     finally:
         for algo in algos:
             algo.stop()
@@ -4852,7 +4872,8 @@ def _rllib_update_pair(torch, make, data, update, fill=None,
                                _leaves(states[0][key])))
     check(set(metrics[0]) == set(metrics[1]),
           f"{name}: the metrics {metrics}")
-    gap = max(apart(metrics[1][k], metrics[0][k]) for k in metrics[0])
+    gap = max((apart(metrics[1][k], metrics[0][k]) for k in metrics[0]),
+              default=0.0)
     return diff, gap, ms, on
 
 
@@ -5321,6 +5342,588 @@ def phase_rllib_more_learners(torch):
         ray_tpu_torch.shutdown()
 
 
+# -- 5r. AlphaStar, AlphaZero, CRR, DDPPO, Dreamer, DT, MAML, MBMPO ----------
+
+class _ClonableCartPole(_CartPole):
+    """env/examples.py's ClonableCartPole (CartPole-v1's unwrapped
+    dynamics: no step limit, gymnasium's rewards after a termination; the
+    score paid at termination only; ``get_state``/``set_state``; the
+    ``{"obs", "action_mask"}`` observation) in numpy, with the spaces read
+    by their attributes: 5r's AlphaZero environment where gymnasium is not
+    installed."""
+
+    def __init__(self, _config=None):
+        super().__init__()
+        self.observation_space = types.SimpleNamespace(spaces={
+            "obs": self.observation_space,
+            "action_mask": types.SimpleNamespace(shape=(2,))})
+        self._beyond = None
+        self._running = 0.0
+
+    def _with_mask(self, raw):
+        return {"obs": np.asarray(raw, np.float32),
+                "action_mask": np.ones(2, np.float32)}
+
+    def reset(self, *, seed=None, options=None):
+        raw, info = super().reset(seed=seed)
+        self._beyond = None
+        self._running = 0.0
+        return self._with_mask(raw), info
+
+    def step(self, action):
+        raw, _, term, _, info = super().step(action)
+        if not term:
+            r = 1.0
+        elif self._beyond is None:
+            self._beyond, r = 0, 1.0
+        else:
+            self._beyond, r = self._beyond + 1, 0.0
+        self._running += r
+        return (self._with_mask(raw), self._running if term else 0.0, term,
+                False, info)
+
+    def get_state(self):
+        return (np.array(self._state, np.float64), self._steps,
+                self._running, self._beyond)
+
+    def set_state(self, state):
+        arr, self._steps, self._running, self._beyond = state
+        self._state = np.array(arr, np.float64)
+
+    def episode_score(self):
+        return self._running
+
+    def close(self):
+        pass
+
+
+def _box(low, high, shape, seed=None):
+    """A Box space read by its attributes, with gymnasium's ``sample``
+    of a bounded box (uniform, float32)."""
+    low = np.full(shape, low, np.float32)
+    high = np.full(shape, high, np.float32)
+    rng = np.random.default_rng(seed)
+    return types.SimpleNamespace(
+        shape=shape, low=low, high=high, dtype=np.float32,
+        sample=lambda: rng.uniform(low, high, shape).astype(np.float32))
+
+
+class _PointGoal:
+    """env/examples.py's PointGoalEnv (the 1D reach-the-goal task, its
+    hidden goal, rewards, 30-step horizon and ``reward_fn``) in numpy, with
+    the spaces read by their attributes: 5r's Dreamer, MAML and MBMPO
+    environment where gymnasium is not installed."""
+
+    def __init__(self, config=None):
+        config = dict(config or {})
+        self.goal = float(config.get("goal", 0.0))
+        self.horizon = int(config.get("horizon", 30))
+        self.observation_space = _box(-5.0, 5.0, (1,))
+        self.action_space = _box(-1.0, 1.0, (1,))
+        self._rng = np.random.default_rng(config.get("seed", 0))
+        self.pos = 0.0
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.pos = float(self._rng.uniform(-3, 3))
+        self._t = 0
+        return np.array([self.pos], np.float32), {}
+
+    def step(self, action):
+        a = float(np.clip(np.asarray(action).reshape(-1), -1, 1)[0])
+        self.pos = float(np.clip(self.pos + a, -5, 5))
+        self._t += 1
+        return (np.array([self.pos], np.float32),
+                -abs(self.pos - self.goal),
+                False, self._t >= self.horizon, {})
+
+    def reward_fn(self, state, action, next_state):
+        return -abs(float(np.asarray(next_state).reshape(-1)[0])
+                    - self.goal)
+
+    def close(self):
+        pass
+
+
+class _RepeatedRPS:
+    """env/examples.py's TwoPlayerRepeatedRPS (two agents, zero-sum
+    rock-paper-scissors payoffs, one-hot last moves, ``rounds`` rounds) in
+    numpy, with the spaces read by their attributes: 5r's AlphaStar
+    environment where gymnasium is not installed."""
+
+    agent_ids = {"p0", "p1"}
+
+    def __init__(self, config=None):
+        self.rounds = int(dict(config or {}).get("rounds", 8))
+        self.observation_space = _box(0.0, 1.0, (6,))
+        self.action_space = types.SimpleNamespace(n=3, shape=())
+        self._t = 0
+        self._last = {"p0": None, "p1": None}
+
+    def _obs_for(self, me, other):
+        obs = np.zeros(6, np.float32)
+        if self._last[me] is not None:
+            obs[self._last[me]] = 1.0
+            obs[3 + self._last[other]] = 1.0
+        return obs
+
+    def reset(self, *, seed=None, options=None):
+        self._t = 0
+        self._last = {"p0": None, "p1": None}
+        return ({"p0": self._obs_for("p0", "p1"),
+                 "p1": self._obs_for("p1", "p0")}, {})
+
+    def step(self, action_dict):
+        a0, a1 = int(action_dict["p0"]), int(action_dict["p1"])
+        r0 = 0.0 if a0 == a1 else (1.0 if (a0 - a1) % 3 == 1 else -1.0)
+        self._last = {"p0": a0, "p1": a1}
+        self._t += 1
+        done = self._t >= self.rounds
+        obs = {"p0": self._obs_for("p0", "p1"),
+               "p1": self._obs_for("p1", "p0")}
+        return (obs, {"p0": r0, "p1": -r0},
+                {"__all__": done, "p0": done, "p1": done},
+                {"__all__": False, "p0": False, "p1": False}, {})
+
+    def close(self):
+        pass
+
+
+def _rllib_more_envs():
+    """5r's environments: (CartPole, clonable CartPole, the point-goal
+    task, repeated RPS), the port's copies where gymnasium is installed,
+    the numpy stand-ins without it."""
+    if _gymnasium() is None:
+        return _CartPole, _ClonableCartPole, _PointGoal, _RepeatedRPS
+    from ray_tpu_torch.rllib.env.examples import (ClonableCartPole,
+                                                  PointGoalEnv,
+                                                  TwoPlayerRepeatedRPS)
+    return "CartPole-v1", ClonableCartPole, PointGoalEnv, \
+        TwoPlayerRepeatedRPS
+
+
+def _goal_sampler(rng):
+    """MAML's hidden-goal tasks (tests/test_rllib_maml.py's sampler)."""
+    return {"goal": float(rng.uniform(-2.5, 2.5))}
+
+
+def _rllib_offline_cartpole(path, cartpole, episodes=40, seed=0):
+    """CRR's and DT's logged data: half heuristic, half random CartPole
+    episodes (tests/test_rllib_dt.py's mix) written by the port's
+    JsonWriter."""
+    from ray_tpu_torch.rllib import JsonWriter, SampleBatch
+    env = _CartPole() if not isinstance(cartpole, str) else None
+    if env is None:
+        env = _gymnasium().make(cartpole)
+    writer = JsonWriter(path)
+    rng = np.random.default_rng(seed)
+    for e in range(episodes):
+        obs, _ = env.reset(seed=e)
+        rows = {k: [] for k in ("obs", "actions", "rewards", "new_obs",
+                                "terminateds", "truncateds", "eps_id")}
+        done, t = False, 0
+        while not done and t < 200:
+            if e < episodes // 2 and rng.random() >= 0.1:
+                a = 1 if (obs[2] + 0.5 * obs[3]) > 0 else 0
+            else:
+                a = int(rng.integers(2))
+            nxt, r, term, trunc, _ = env.step(a)
+            for k, v in (("obs", np.asarray(obs, np.float32)),
+                         ("actions", a), ("rewards", float(r)),
+                         ("new_obs", np.asarray(nxt, np.float32)),
+                         ("terminateds", float(term)),
+                         ("truncateds", float(trunc)), ("eps_id", e)):
+                rows[k].append(v)
+            obs, done, t = nxt, term or trunc, t + 1
+        writer.write(SampleBatch({k: np.asarray(v) for k, v in rows.items()}))
+    writer.close()
+
+
+def _rllib_more_configs(offline):
+    """5r's eight learners: name -> a fresh config (the tuned examples'
+    where there is one, with 5r's environments)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.tuned_examples import TUNED_EXAMPLES
+    cartpole, clonable, point, rps = _rllib_more_envs()
+
+    def tuned(name, env):
+        return lambda: TUNED_EXAMPLES[name].build_config().environment(env)
+
+    return {
+        "alphastar": lambda: rllib.AlphaStarConfig().environment(
+            rps, env_config={"rounds": 8}).debugging(seed=0),
+        "alphazero": tuned("cartpole-alphazero", clonable),
+        "crr": lambda: rllib.CRRConfig().environment(cartpole).offline_data(
+            input_=offline).debugging(seed=0),
+        "ddppo": tuned("cartpole-ddppo", cartpole),
+        "dreamer": tuned("pointgoal-dreamer", point),
+        "dt": lambda: rllib.DTConfig().environment(cartpole).offline_data(
+            input_=offline).debugging(seed=0),
+        "maml": lambda: rllib.MAMLConfig().environment(point).training(
+            task_sampler=_goal_sampler).debugging(seed=0),
+        "mbmpo": lambda: rllib.MBMPOConfig().environment(point).debugging(
+            seed=0),
+    }
+
+
+def _rllib_reinforce_rows(n, seed):
+    """A REINFORCE batch of the point-goal task's shapes: (obs, actions,
+    standardized advantages)."""
+    rng = np.random.default_rng(seed)
+    adv = rng.normal(size=n)
+    return (rng.uniform(-3, 3, (n, 1)).astype(np.float32),
+            rng.normal(0, 0.8, (n, 1)).astype(np.float32),
+            ((adv - adv.mean()) / adv.std()).astype(np.float32))
+
+
+def _rllib_more_learners(configs):
+    """5r(a)'s learners: name -> (config, ``data(algo, i)``, ``update(algo,
+    data)``, ``fill(algo)``, ``after(card_algo)``): batches from seeds,
+    Dreamer's normals from the CPU learner's host generator, DT's windows
+    sliced by the CPU learner; DDPPO's two workers each on their own batch,
+    then checked bit-equal and learning on the card."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import SampleBatch
+    from ray_tpu_torch.rllib.policy.torch_policy import (as_tensor,
+                                                         compute_gae)
+
+    def league(algo, i):
+        rng = np.random.default_rng(100 + i)
+        n = 128
+        obs = np.zeros((n, 6), np.float32)
+        obs[np.arange(n), rng.integers(0, 3, n)] = 1.0
+        obs[np.arange(n), 3 + rng.integers(0, 3, n)] = 1.0
+        return compute_gae(SampleBatch({
+            SampleBatch.OBS: obs, SampleBatch.ACTIONS: rng.integers(0, 3, n),
+            SampleBatch.REWARDS: rng.choice([-1.0, 0.0, 1.0], n).astype(
+                np.float32),
+            SampleBatch.TERMINATEDS: (np.arange(n) % 8 == 7).astype(
+                np.float32),
+            SampleBatch.ACTION_LOGP: np.log(rng.uniform(0.2, 0.5, n)).astype(
+                np.float32),
+            SampleBatch.VF_PREDS: rng.normal(0, 0.5, n).astype(np.float32)}),
+            0.99, 0.95, 0.0)
+
+    def league_update(algo, batch):
+        out = {}
+        for pid in sorted(algo.learning):
+            for k, v in algo.learn_on_batch(pid, batch).items():
+                out[f"{pid}/{k}"] = v
+        return out
+
+    def searches(algo, i):
+        rng = np.random.default_rng(110 + i)
+        mask = np.ones((128, 2), np.float32)
+        mask[rng.random(128) < 0.2, 0] = 0.0
+        return SampleBatch({
+            "obs": rng.normal(size=(128, 4)).astype(np.float32),
+            "tree_policy": rng.dirichlet([1.0, 1.0], 128).astype(np.float32),
+            "mask": mask,
+            "z": rng.choice([-1.0, 1.0], (128, 1)).astype(np.float32)})
+
+    def workers(algo, i):
+        return [_rllib_rows(256, 120 + 2 * i + k, "cartpole")
+                for k in range(2)]
+
+    def ddppo_after(algo):
+        got = ray_tpu_torch.get([w.get_weights.remote()
+                                 for w in algo.workers.remote_workers])
+        check(_max_diff(got[0], got[1]) == 0,
+              "5r: DDPPO's two workers' weights differ")
+        on = ray_tpu_torch.get([w.apply.remote(
+            lambda w: sorted({t.device.type for t in
+                              _leaves(w._ddppo["params"])}))
+            for w in algo.workers.remote_workers])
+        check(on == [[torch.device(DEVICE).type]] * 2,
+              f"5r: DDPPO's workers learn on {on}")
+
+    def sequences(algo, i):
+        rng = np.random.default_rng(130 + i)
+        b, t = algo.config.batch_size, algo.config.seq_len
+        mask = np.ones((b, t), np.float32)
+        mask[: b // 4, t // 2:] = 0.0
+        return ({"obs": rng.uniform(-3, 3, (b, t, 1)).astype(np.float32),
+                 "actions": rng.uniform(-1, 1, (b, t, 1)).astype(np.float32),
+                 "rewards": -np.abs(rng.normal(1.5, 1.0, (b, t))).astype(
+                     np.float32),
+                 "mask": mask}, algo.draw_noise(b, t))
+
+    def tasks(per_model):
+        def data(algo, i):
+            n = (algo.config.ensemble_size if per_model
+                 else algo.config.tasks_per_iteration)
+            return [([_rllib_reinforce_rows(240, 140 + 10 * i + k)],
+                     _rllib_reinforce_rows(240, 145 + 10 * i + k))
+                    for k in range(n)]
+
+        def update(algo, batches):
+            dev = algo.local_policy.device
+            to = lambda b: tuple(as_tensor(x, dev) for x in b)  # noqa: E731
+            out = {}
+            if per_model:
+                out["dynamics_loss"] = algo._fit_dynamics()
+                algo.learn_on_tasks([(to(pre[0]), to(post))
+                                     for pre, post in batches])
+            else:
+                algo.learn_on_tasks([([to(b) for b in pre], to(post))
+                                     for pre, post in batches])
+            return out
+        return data, update
+
+    def transitions(algo):
+        rng = np.random.default_rng(150)
+        s = rng.uniform(-3, 3, (400, 1)).astype(np.float32)
+        a = rng.normal(0, 0.5, (400, 1)).astype(np.float32)
+        algo._buffer_s = list(s)
+        algo._buffer_a = list(a)
+        algo._buffer_ns = list(np.clip(s + np.clip(a, -1, 1), -5, 5))
+
+    def learn(algo, mb):
+        return algo.learn_on_batch(mb)
+
+    return {
+        "alphastar": (configs["alphastar"], league, league_update, None,
+                      None),
+        "alphazero": (configs["alphazero"], searches, learn, None, None),
+        "crr": (configs["crr"], lambda algo, i: _rllib_rows(
+            256, 160 + i, "cartpole"), learn, None, None),
+        "ddppo": (configs["ddppo"], workers,
+                  lambda algo, b: algo.learn_on_batches(b), None,
+                  ddppo_after),
+        "dreamer": (configs["dreamer"], sequences,
+                    lambda algo, args: algo.learn_on_batch(*args), None,
+                    None),
+        "dt": (configs["dt"], lambda algo, i: algo._sample_minibatch(
+            algo.config), lambda algo, mb: {"loss": algo.learn_on_batch(mb)},
+               None, None),
+        "maml": (configs["maml"], *tasks(False), None, None),
+        "mbmpo": (configs["mbmpo"], *tasks(True), transitions, None),
+    }
+
+
+def _rllib_more_greedy(algo, name):
+    """A trained 5r learner's greedy answers to seeded inputs."""
+    import torch
+    rng = np.random.default_rng(4)
+    if name == "alphastar":
+        obs = np.eye(6, dtype=np.float32)
+        out = []
+        for pid in sorted(algo.learning):
+            pol = algo.learning[pid]
+            with torch.no_grad():
+                logits = pol.logits(pol.params, torch.from_numpy(obs).to(
+                    pol.device))
+            out.append(logits.argmax(-1).tolist())
+        return out
+    if name == "alphazero":
+        return [int(np.argmax(algo._evaluate(v, None)[0]))
+                for v in rng.normal(size=(8, 4)).astype(np.float32)]
+    if name == "dreamer":
+        out = []
+        for obs in rng.uniform(-3, 3, (4, 1)).astype(np.float32):
+            algo._h = np.zeros(algo._D, np.float32)
+            algo._z = np.zeros(algo._Z, np.float32)
+            algo._a_prev = np.zeros(algo.act_dim, np.float32)
+            out.append(algo._filter_and_act(
+                obs, torch.zeros((1, algo._Z)),
+                torch.zeros((1, algo.act_dim)))[2].tolist())
+        return out
+    if name == "dt":
+        k, dev = algo.config.context_len, algo.device
+        window = (rng.uniform(0, 2, (4, k, 1)), rng.normal(size=(4, k, 4)),
+                  np.eye(2)[rng.integers(0, 2, (4, k))],
+                  np.tile(np.arange(k), (4, 1)), np.ones((4, k)))
+        with torch.no_grad():
+            preds = algo._forward(algo.params, *(
+                torch.from_numpy(x.astype(np.int64 if i == 3
+                                          else np.float32)).to(dev)
+                for i, x in enumerate(window)))
+        return preds.argmax(-1).tolist()
+    if name in ("maml", "mbmpo"):
+        out = [np.asarray(algo.compute_single_action(o)).tolist() for o in
+               rng.uniform(-3, 3, (8, 1)).astype(np.float32)]
+        if name == "mbmpo":
+            out.append(algo.dynamics_disagreement(
+                np.zeros((4, 1), np.float32), np.full((4, 1), 0.5,
+                                                      np.float32)))
+        return out
+    return [algo.compute_single_action(o) for o in
+            rng.normal(size=(8, 4)).astype(np.float32)]
+
+
+def _rllib_more_losses(result):
+    """A 5r result's losses (MAML's adaptation returns)."""
+    return {k: v for k, v in result.items() if isinstance(v, float)
+            and ("loss" in k or k.endswith("adaptation_return"))}
+
+
+def _rllib_search_ms(torch, make):
+    """One exploit-mode AlphaZero search (30 simulations, each leaf a
+    forward and a copy back) on the CPU and on the card from one learner
+    state and environment state: each device's ms, and whether each
+    restored the environment."""
+    from ray_tpu_torch.rllib.algorithms.learner_state import (
+        learner_state, load_learner_state)
+    algos = [make().resources(device=d).build() for d in ("cpu", DEVICE)]
+    load_learner_state(algos[1], learner_state(algos[0]))
+    ms, restored = [], []
+    for algo in algos:
+        obs, _ = algo._env.reset(seed=11)
+        algo._search(obs, explore=False)  # warm
+        before = algo._env.get_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo._search(obs, explore=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = algo._env.get_state()
+        restored.append(bool(np.array_equal(before[0], after[0])
+                             and before[1:] == after[1:]))
+        algo.stop()
+    return ms, restored
+
+
+def _rllib_more_train(torch, name, make):
+    """5r(b) for one learner: RLLIB_MORE_ITERS[name] iterations with the
+    learner on the card (AlphaZero's environment checked restored after
+    every search, Dreamer's filter state checked advancing), then a save,
+    and a restore into a fresh learner with the same weights and greedy
+    answers. Returns the results and the seconds of the iterations."""
+    iters = RLLIB_MORE_ITERS[name]
+    algo = make().resources(device=DEVICE).build()
+    check(all(t.device.type == torch.device(DEVICE).type
+              for t in _leaves(_learned(algo))),
+          f"5r: {name}'s learner is not on the card")
+    searches = []  # per search (AlphaZero) or filter step (Dreamer): ok
+    if name == "alphazero":
+        search = algo._search
+
+        def checked(obs, explore):
+            before = algo._env.get_state()
+            out = search(obs, explore)
+            after = algo._env.get_state()
+            searches.append(np.array_equal(before[0], after[0])
+                            and before[1:] == after[1:])
+            return out
+
+        algo._search = checked
+    if name == "dreamer":
+        step = algo._filter_and_act
+
+        def stepped(obs, eps_z, eps_a):
+            before = np.concatenate([algo._h, algo._z])
+            out = step(obs, eps_z, eps_a)
+            searches.append(not np.array_equal(before,
+                                               np.concatenate(out[:2])))
+            return out
+
+        algo._filter_and_act = stepped
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(iters)]
+    seconds = time.perf_counter() - t0
+    if name in ("alphazero", "dreamer"):
+        what = ("searches left the environment moved" if name == "alphazero"
+                else "filter steps left the recurrent state where it was")
+        check(searches and all(searches),
+              f"5r: {name}: {searches.count(False)} of {len(searches)} "
+              f"{what}")
+        for wrapped in ("_search", "_filter_and_act"):
+            vars(algo).pop(wrapped, None)
+    # Every learner has learned by the last iteration: its losses (MAML's
+    # pre- and post-adaptation returns) are there and finite.
+    last = _rllib_more_losses(results[-1])
+    check(last and np.isfinite(list(last.values())).all(),
+          f"5r: {name}'s last losses {last}")
+    path = algo.save(tempfile.mkdtemp(prefix="chip_smoke_rllib_5r_"))
+    greedy = _rllib_more_greedy(algo, name)
+    weights = algo.get_weights()
+    algo.stop()
+    algo2 = make().resources(device=DEVICE).build()
+    algo2.restore(path)
+    shutil.rmtree(path, ignore_errors=True)
+    same = (algo2.iteration == iters
+            and _max_diff(algo2.get_weights(), weights) == 0
+            and _rllib_more_greedy(algo2, name) == greedy)
+    algo2.stop()
+    check(same, f"5r: the restored {name} differs from the saved one")
+    return results, seconds, len(searches)
+
+
+def phase_rllib_league(torch):
+    """5r: (a) AlphaStar, AlphaZero, CRR, DDPPO, Dreamer, DT, MAML and
+    MBMPO, each RLLIB_UPDATES updates on the card against the CPU from one
+    learner state, batch and noise, and one AlphaZero search timed on each
+    device; (b) each trained with its learner on the card, then saved and
+    restored; (c) each update's ms and each iteration's s."""
+    import ray_tpu_torch
+
+    gym = _gymnasium()
+    route = ("no gymnasium (_CartPole, _ClonableCartPole, _PointGoal, "
+             "_RepeatedRPS)" if gym is None else
+             f"gymnasium {gym.__version__}")
+    print(f"rllib 5r: route: {route}")
+    cartpole = _rllib_more_envs()[0]
+    offline = tempfile.mkdtemp(prefix="chip_smoke_rllib_offline_")
+    _rllib_offline_cartpole(offline, cartpole)
+    configs = _rllib_more_configs(offline)
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        rows = []
+        for name, (make, data, update, fill, after) in _rllib_more_learners(
+                configs).items():
+            diff, gap, ms, on = _rllib_update_pair(torch, make, data,
+                                                   update, fill, True, after)
+            check(on == {torch.device(DEVICE).type},
+                  f"5r: {name}'s learner parameters are on {on}")
+            check(diff <= RLLIB_SGD_TOL and gap <= RLLIB_SGD_TOL,
+                  f"5r: {name} on {DEVICE} against the CPU: state within "
+                  f"{diff:.3e}, metrics within {gap:.3e} (bound "
+                  f"{RLLIB_SGD_TOL})")
+            rows.append((name, ms, diff, gap))
+        print(f"rllib 5r: one update on {DEVICE} against the CPU from the "
+              f"same state, batch and noise ({RLLIB_UPDATES} each; ms of "
+              f"the last on the card, on the CPU; state and metrics within, "
+              f"relative above 1, bound {RLLIB_SGD_TOL}; {CARD}):")
+        for name, ms, diff, gap in rows:
+            print(f"  {name:10s} {ms[1]:9.3f} ms on {DEVICE} {ms[0]:9.3f} "
+                  f"ms on the CPU; state within {diff:.3e}, metrics within "
+                  f"{gap:.3e}")
+        search_ms, restored = _rllib_search_ms(torch, configs["alphazero"])
+        check(all(restored), f"5r: a timed search moved the environment "
+              f"({restored})")
+        print(f"rllib 5r: one AlphaZero search (30 simulations) "
+              f"{search_ms[1]:.3f} ms on {DEVICE}, {search_ms[0]:.3f} ms on "
+              f"the CPU; the environment restored on both; {CARD}")
+
+        for name, make in configs.items():
+            results, seconds, n_searches = _rllib_more_train(torch, name,
+                                                             make)
+            losses = {k: [round(v, 4) for v in (_rllib_more_losses(r).get(k)
+                                                for r in results)
+                          if v is not None and np.isfinite(v)]
+                      for k in _rllib_more_losses(results[-1])}
+            rewards = [round(r.get("episode_reward_mean", float("nan")), 2)
+                       for r in results]
+            extra = {"alphazero": f", {n_searches} searches, the "
+                     "environment restored after each",
+                     "dreamer": f", {n_searches} filter steps, each "
+                     "advancing the recurrent state"}.get(name, "")
+            print(f"rllib 5r: {name} ({route}), the learner on {DEVICE}: "
+                  f"{len(results)} iterations in {seconds:.1f} s "
+                  f"({[round(r['time_this_iter_s'], 2) for r in results]} s "
+                  f"each){extra}, losses {losses}, episode_reward_mean "
+                  f"{rewards}; saved and restored, the same weights and "
+                  f"greedy "
+                  f"answers; {CARD}")
+    finally:
+        shutil.rmtree(offline, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+
+
 def _timed(phase, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -5344,7 +5947,8 @@ def kernel_times(root):
 def some_phases(groups):
     """Phases 1 and 2, then the groups of later phases named in
     ``groups``: "zoo" (5h, 5i on the 1-rank mesh, 5k), "air" (5m),
-    "rllib" (5o, 5p, 5q). Each phase's seconds and checks as in the whole
+    "rllib" (5o, 5p, 5q, 5r). Each phase's seconds and checks as in the
+    whole
     run; prints no result line."""
     torch, _ = phase_environment()
     _timed("2", phase_build)
@@ -5365,6 +5969,7 @@ def some_phases(groups):
             _timed("5o", phase_rllib, torch)
             _timed("5p", phase_rllib_learners, torch)
             _timed("5q", phase_rllib_more_learners, torch)
+            _timed("5r", phase_rllib_league, torch)
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -5392,7 +5997,7 @@ def main():
 
 
 def _main_phases(torch):
-    """Phases 2-5q; returns the kernels line's rows."""
+    """Phases 2-5r; returns the kernels line's rows."""
     from ray_tpu_torch.parallel import MeshConfig
     from ray_tpu_torch.parallel.mesh import mesh_sizes
     from ray_tpu_torch.train.torch import prepare_mesh
@@ -5443,6 +6048,7 @@ def _main_phases(torch):
     _timed("5o", phase_rllib, torch)
     _timed("5p", phase_rllib_learners, torch)
     _timed("5q", phase_rllib_more_learners, torch)
+    _timed("5r", phase_rllib_league, torch)
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     return [

@@ -10,10 +10,13 @@ these attributes, with the JAX algorithm's names, in ``_learner_trees``
 (parameter trees), ``_learner_opts`` (optimizer states, each with the
 parameters it steps) and ``_learner_values`` (counters and scalars).
 ``"params"`` is the policy's parameters, or the algorithm's own where it
-learns without a policy (QMix, MADDPG, SlateQ: ``_owns_params``). The
+learns without a policy (QMix, MADDPG, SlateQ, AlphaZero, Dreamer, DT,
+AlphaStar: ``_owns_params``). The
 parameters of an optimizer state are an attribute, or a path into one
 ("params/actors"); a list of states steps the list of trees at that path,
-one each (MADDPG's per-agent Adams); a dict ``{label: path}`` is one
+one each (MADDPG's per-agent Adams, MBMPO's ensemble); a dict of states
+steps the dict of trees at that path, one per key (AlphaStar's learners,
+whose parameters are a dict by policy id); a dict ``{label: path}`` is one
 ``optax.multi_transform`` state over the labelled subtrees (SlateQ's two
 Adams), held as a dict of states by label.
 
@@ -100,6 +103,8 @@ def _opt_state(algo, name: str, of) -> Any:
     params = _params(algo, of)
     if isinstance(state, list):
         return [_optax(s, p) for s, p in zip(state, params)]
+    if isinstance(state, dict):  # one optimizer state (a chain's tuple) a key
+        return {k: _optax(state[k], params[k]) for k in sorted(state)}
     return _optax(state, params)
 
 

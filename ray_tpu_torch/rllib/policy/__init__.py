@@ -18,17 +18,14 @@ import numpy as np
 def make_policy(policy_config: Dict[str, Any], obs_space, action_space,
                 seed: int = 0, device=None):
     """Instantiate the policy named by policy_config['policy_class']."""
-    # Only a Dict space keeps its subspaces in a dict: gymnasium is
-    # imported where the space can be one, so a space read by its
-    # attributes builds a policy without it.
-    if isinstance(getattr(obs_space, "spaces", None), dict):
-        import gymnasium as gym
-        if isinstance(obs_space, gym.spaces.Dict) and \
-                "obs" in obs_space.spaces:
-            # The {"obs", "action_mask"} dict convention (AlphaZero envs,
-            # reference parametric-action envs): policies encode the inner
-            # observation; masks are the algorithm's concern.
-            obs_space = obs_space.spaces["obs"]
+    # A Dict space keeps its subspaces in a dict (read by that attribute,
+    # so a space without gymnasium builds a policy too). The {"obs",
+    # "action_mask"} dict convention (AlphaZero envs, reference
+    # parametric-action envs): policies encode the inner observation;
+    # masks are the algorithm's concern.
+    subspaces = getattr(obs_space, "spaces", None)
+    if isinstance(subspaces, dict) and "obs" in subspaces:
+        obs_space = subspaces["obs"]
     name = policy_config.get("policy_class", "actor_critic")
     model_config = {
         "fcnet_hiddens": policy_config.get("fcnet_hiddens", (64, 64)),

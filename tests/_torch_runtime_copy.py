@@ -133,15 +133,6 @@ NOT_YET_COPIED: Dict[str, str] = {
         "item 18: the cluster tools (the CLI's up and down commands)",
     "ray_tpu_torch._private.ray_perf":
         "item 18: the cluster tools (the CLI's perf command)",
-    "ray_tpu_torch.rllib:AlphaZeroConfig":
-        "item 10b: RLlib's other algorithms (the cartpole-alphazero tuned "
-        "example)",
-    "ray_tpu_torch.rllib:DDPPOConfig":
-        "item 10b: RLlib's other algorithms (the cartpole-ddppo tuned "
-        "example)",
-    "ray_tpu_torch.rllib:DreamerConfig":
-        "item 10b: RLlib's other algorithms (the pointgoal-dreamer tuned "
-        "example)",
     "ray_tpu_torch.rllib.env.atari":
         "item 10b: RLlib's other algorithms (the atari-ppo tuned example's "
         "synthetic Atari environment)",

@@ -17,9 +17,13 @@ against the CPU from the same learner state (``learner_state``), batch
 and noise; each learner built without a device is on the card. Then
 ``RainbowPolicy``'s (noisy and not) and ``R2D2Policy``'s forwards, and one
 update of Rainbow (noisy heads on and off), R2D2, QMIX, MADDPG and SlateQ,
-the same way.
+the same way. Then the learning gates of AlphaZero, CRR, DDPPO, Dreamer,
+DT, MAML and MBMPO (marked ``slow`` too, as their CPU mirrors are) with
+their learners on the card, on ``chip_smoke.py``'s numpy environments.
 """
 
+import importlib.util
+import pathlib
 import types
 
 import numpy as np
@@ -522,3 +526,155 @@ def test_one_more_update_on_the_card_matches_the_cpu(cuda, name):
                                        np.asarray(b, np.float64),
                                        rtol=UPDATE_TOL, atol=UPDATE_TOL,
                                        err_msg=key)
+
+
+# -- the learning gates of AlphaZero, CRR, DDPPO, Dreamer, DT, MAML, MBMPO ----
+
+_CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+@pytest.fixture(scope="module")
+def stand_ins():
+    """``chip_smoke.py``'s environments in numpy (the card's machine has
+    no gymnasium), loaded by path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_stand_ins",
+                                                  _CHIP_SMOKE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture
+def cluster():
+    import ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=8)
+    yield
+    ray_tpu_torch.shutdown()
+
+
+def _tuned_learns(name, env):
+    """``run_tuned_example`` with the tuned example's environment swapped
+    for ``env`` and its learner on the card: (passed, best reward)."""
+    from ray_tpu_torch.rllib.tuned_examples import TUNED_EXAMPLES
+    ex = TUNED_EXAMPLES[name]
+    algo = ex.build_config().environment(env).resources(device=None).build()
+    best = float("-inf")
+    try:
+        for _ in range(ex.max_iters):
+            last = algo.train().get("episode_reward_mean", float("nan"))
+            if last == last and last > best:
+                best = last
+            if best >= ex.stop_reward:
+                break
+    finally:
+        algo.stop()
+    return best >= ex.stop_reward, best
+
+
+@pytest.mark.slow
+def test_tuned_alphazero_learns_on_the_card(cuda, cluster, stand_ins):
+    """tests/test_rllib_alphazero_crr_ddppo.py's gate on the card, on the
+    numpy clonable CartPole."""
+    passed, best = _tuned_learns("cartpole-alphazero",
+                                 stand_ins._ClonableCartPole)
+    assert passed, best
+
+
+@pytest.mark.slow
+def test_crr_learns_from_mixed_data_on_the_card(cuda, cluster, stand_ins,
+                                                tmp_path):
+    """A good CartPole policy (eval >= 150) out of half-random logged data
+    (the gate's 50 episodes, written from the numpy CartPole)."""
+    from ray_tpu_torch.rllib import CRRConfig
+    stand_ins._rllib_offline_cartpole(str(tmp_path), stand_ins._CartPole,
+                                      episodes=50)
+    algo = (CRRConfig().environment(stand_ins._CartPole)
+            .offline_data(input_=str(tmp_path)).debugging(seed=0)).build()
+    assert algo.local_policy.device.type == "cuda"
+    best = 0.0
+    for i in range(40):
+        algo.train()
+        if i % 10 == 9:
+            best = max(best, algo.evaluate()["episode_reward_mean"])
+            if best >= 150.0:
+                break
+    algo.stop()
+    assert best >= 150.0, best
+
+
+@pytest.mark.slow
+def test_tuned_ddppo_learns_on_the_card(cuda, cluster, stand_ins):
+    """The two workers learn on the card, half a card each."""
+    passed, best = _tuned_learns("cartpole-ddppo", stand_ins._CartPole)
+    assert passed, best
+
+
+@pytest.mark.slow
+def test_tuned_dreamer_learns_on_the_card(cuda, cluster, stand_ins):
+    passed, best = _tuned_learns("pointgoal-dreamer", stand_ins._PointGoal)
+    assert passed, best
+
+
+@pytest.mark.slow
+def test_dt_return_conditioning_learns_on_the_card(cuda, cluster, stand_ins,
+                                                   tmp_path):
+    """Conditioning on a high return extracts the good behavior from
+    mixed-quality data (the gate's 20 heuristic and 20 random episodes);
+    conditioning low tracks the low target."""
+    from ray_tpu_torch.rllib import DTConfig
+    stand_ins._rllib_offline_cartpole(str(tmp_path), stand_ins._CartPole,
+                                      episodes=40)
+    algo = (DTConfig().environment(stand_ins._CartPole)
+            .offline_data(input_=str(tmp_path))
+            .training(lr=1e-3, train_batch_size=64, context_len=20,
+                      num_train_batches_per_iteration=50)
+            .debugging(seed=0)).build()
+    for _ in range(5):
+        res = algo.train()
+    assert res["loss"] < 0.45
+    env = stand_ins._CartPole()
+    high = algo.evaluate_env(env, target_return=200.0, episodes=3,
+                             seed=100)
+    low = algo.evaluate_env(env, target_return=20.0, episodes=3, seed=100)
+    algo.stop()
+    assert high > 100.0, (high, low)
+    assert high > low + 50.0, (high, low)
+
+
+@pytest.mark.slow
+def test_maml_learns_to_adapt_on_the_card(cuda, cluster, stand_ins):
+    """After meta-training, one inner step on fresh hidden-goal tasks lands
+    at a strong absolute level."""
+    from ray_tpu_torch.rllib import MAMLConfig
+    algo = (MAMLConfig().environment(stand_ins._PointGoal)
+            .training(task_sampler=stand_ins._goal_sampler, inner_lr=0.05,
+                      lr=5e-3, inner_steps=3, episodes_per_inner_batch=8,
+                      tasks_per_iteration=5)
+            .debugging(seed=0)).build()
+    posts = [algo.train()["post_adaptation_return"] for _ in range(25)]
+    assert np.mean(posts[-5:]) > np.mean(posts[:5]) - 15.0, posts
+    rng = np.random.default_rng(123)
+    outs = []
+    for _ in range(8):
+        env = stand_ins._PointGoal({"goal": float(rng.uniform(-2.5, 2.5))})
+        outs.append(algo._collect(env, algo.adapt(env), 8)[3])
+    algo.stop()
+    assert float(np.mean(outs)) > -65.0, outs
+
+
+@pytest.mark.slow
+def test_mbmpo_learns_from_imagination_on_the_card(cuda, cluster,
+                                                   stand_ins):
+    """Real return climbs from random (~-60) past -25 within 15
+    iterations, the ensemble and the policy on the card."""
+    from ray_tpu_torch.rllib import MBMPOConfig
+    algo = (MBMPOConfig().environment(stand_ins._PointGoal)
+            .debugging(seed=0)).build()
+    best = -1e9
+    for _ in range(15):
+        r = algo.train()["episode_reward_mean"]
+        if r == r:
+            best = max(best, r)
+    algo.stop()
+    assert best > -25.0, best

@@ -132,5 +132,10 @@ def test_tune_and_rllib_modules_are_scanned():
                    "rllib/evaluation/rollout_worker.py",
                    "rllib/evaluation/multi_agent_worker.py",
                    "rllib/algorithms/algorithm.py", "rllib/algorithms/ppo.py",
+                   "rllib/algorithms/alpha_star.py",
+                   "rllib/algorithms/alpha_zero.py", "rllib/algorithms/crr.py",
+                   "rllib/algorithms/ddppo.py", "rllib/algorithms/dreamer.py",
+                   "rllib/algorithms/dt.py", "rllib/algorithms/maml.py",
+                   "rllib/algorithms/mbmpo.py",
                    "examples/multi_agent_ppo.py"):
         assert f"ray_tpu_torch/{module}" in scanned, module

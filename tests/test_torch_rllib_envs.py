@@ -8,7 +8,9 @@ episodes: the observations, rewards, terminations and truncations of
 every step bit for bit, the reset seeds passed on the first reset only
 (as the rollout workers pass them), a later reset continuing the first's
 random stream, with random actions (Pendulum's as float32 and float64
-arrays, the two dtypes its callers hand it).
+arrays, the two dtypes its callers hand it). 5r's ``_ClonableCartPole``,
+``_PointGoal`` and ``_RepeatedRPS`` are held the same way to the copies
+of env/examples.py (over gymnasium's unwrapped CartPole for the first).
 """
 
 import importlib.util
@@ -86,3 +88,102 @@ def test_pendulum_matches_gymnasium(chip_smoke, seed, dtype):
         assert tuple(mine.shape) == tuple(theirs.shape)
         np.testing.assert_array_equal(mine.low, theirs.low)
         np.testing.assert_array_equal(mine.high, theirs.high)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 123])
+def test_clonable_cartpole_matches_the_copy(chip_smoke, seed):
+    """``_ClonableCartPole`` against env/examples.py's ClonableCartPole
+    over gymnasium's unwrapped CartPole, bit for bit: every step's
+    observation and mask, the score paid at termination, the steps past a
+    termination, and a state saved at step 5 and restored at step 60."""
+    from ray_tpu_torch.rllib.env.examples import ClonableCartPole
+    actions = np.random.default_rng(seed).integers(0, 2, 400)
+    envs = [chip_smoke._ClonableCartPole(), ClonableCartPole()]
+    outs = [[], []]
+    for k, env in enumerate(envs):
+        obs, _ = env.reset(seed=seed)
+        outs[k].append(obs)
+        for i, a in enumerate(actions):
+            if i == 5:
+                saved = env.get_state()
+            if i == 60:
+                env.set_state(saved)
+            obs, r, term, trunc, _ = env.step(a)
+            outs[k].append((obs, r, term, trunc, env.episode_score()))
+    for got, want in zip(*outs):
+        if isinstance(got, dict):
+            assert set(got) == set(want) == {"obs", "action_mask"}
+            for key in got:
+                assert got[key].dtype == want[key].dtype == np.float32
+                np.testing.assert_array_equal(got[key], want[key])
+            continue
+        (g_obs, *g_rest), (w_obs, *w_rest) = got, want
+        for key in g_obs:
+            np.testing.assert_array_equal(g_obs[key], w_obs[key])
+        assert [float(x) for x in g_rest] == [float(x) for x in w_rest]
+    got_state, want_state = envs[0].get_state(), envs[1].get_state()
+    np.testing.assert_array_equal(got_state[0], want_state[0])
+    assert got_state[1:] == want_state[1:]
+    assert envs[0].action_space.n == 2
+    assert envs[0].observation_space.spaces["obs"].shape == (4,)
+
+
+def test_point_goal_and_rps_match_the_copies(chip_smoke):
+    """``_PointGoal`` (a hidden goal, seeded resets, the reward function)
+    and ``_RepeatedRPS`` against env/examples.py's PointGoalEnv and
+    TwoPlayerRepeatedRPS, step for step; their spaces' attributes
+    against gymnasium's."""
+    from ray_tpu_torch.rllib.env.examples import (PointGoalEnv,
+                                                  TwoPlayerRepeatedRPS)
+    rng = np.random.default_rng(3)
+    for config in ({}, {"goal": 1.7, "horizon": 12, "seed": 4}):
+        envs = [chip_smoke._PointGoal(config), PointGoalEnv(config)]
+        actions = rng.uniform(-2, 2, (80, 1)).astype(np.float32)
+        outs = []
+        for env in envs:
+            out = [env.reset(seed=5)[0]]
+            for a in actions:
+                obs, r, term, trunc, _ = env.step(a)
+                out.append((obs, r, term, trunc, env.reward_fn(obs, a, obs)))
+                if trunc:
+                    out.append(env.reset()[0])
+            outs.append(out)
+        assert len(outs[0]) == len(outs[1])
+        for got, want in zip(*outs):
+            if isinstance(got, np.ndarray):
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_array_equal(got[0], want[0])
+                assert [float(x) for x in got[1:]] == \
+                    [float(x) for x in want[1:]]
+        for name in ("observation_space", "action_space"):
+            mine, theirs = getattr(envs[0], name), getattr(envs[1], name)
+            assert tuple(mine.shape) == tuple(theirs.shape)
+            np.testing.assert_array_equal(mine.low, theirs.low)
+            np.testing.assert_array_equal(mine.high, theirs.high)
+        sample = envs[0].action_space.sample()
+        assert sample.dtype == np.float32 and sample.shape == (1,)
+        assert -1.0 <= float(sample[0]) <= 1.0
+    envs = [chip_smoke._RepeatedRPS({"rounds": 5}),
+            TwoPlayerRepeatedRPS({"rounds": 5})]
+    moves = rng.integers(0, 3, (12, 2))
+    outs = []
+    for env in envs:
+        out = [env.reset()[0]]
+        for a0, a1 in moves:
+            obs, rewards, terms, truncs, _ = env.step({"p0": a0, "p1": a1})
+            out.append((obs, rewards, terms, truncs))
+            if terms["__all__"]:
+                out.append(env.reset()[0])
+        outs.append(out)
+    for got, want in zip(*outs):
+        if isinstance(got, dict):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for key in g:
+                np.testing.assert_array_equal(g[key], w[key])
+    assert envs[0].agent_ids == envs[1].agent_ids
+    assert envs[0].action_space.n == envs[1].action_space.n == 3
+    assert tuple(envs[0].observation_space.shape) == \
+        tuple(envs[1].observation_space.shape)
